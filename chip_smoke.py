@@ -5,29 +5,41 @@
 
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device: needs CUDA; prints the card's name and power limit; TF32 off.
-  2. build: nvcc builds csrc/*.cu for sm_90a from the checkout.
+  2. build: nvcc builds csrc/*.cu for sm_90a from the checkout (one nvcc
+     per source, in parallel).
   3. kernels: each kernel against its plain PyTorch version on the card at
-     main-path shapes (B1: 256 envs; B2: 256 envs at 320x200; B3: 8 envs
-     at 320x200, 3 layers), with error ceilings, and both timed.
+     main-path shapes, with error ceilings, and both timed. On :test:
+     (B1: 256 envs; B2: 256 envs at 320x200; B3: 8 envs at 320x200, 3
+     layers); on :texstress: at 320x200 x 256 envs after 8 bench ticks,
+     from the port's own walk: B4 at shipped defaults, B6, B5 and B2's
+     per-env mode with portal_global_segs_max=1024 (all bitwise).
   4. goldens: the triangle path (B3) against tests/golden/frames.npz at
-     160x100, and the portal path (B2) on the 8 verify poses at 320x200
-     against tests/golden/verify_ref.npz (made by the JAX package).
-  5. main path: one run with the launch counts set to 0 just before it
-     and read just after, in two segments:
+     160x100, the portal path (B2) on the 8 verify poses at 320x200
+     against tests/golden/verify_ref.npz, and the 8 :texstress: states of
+     tests/golden/verify_texstress_ref.npz at 320x200 in both configs
+     (both made by the JAX package).
+  5. main path: every segment runs with the launch counts set to 0 just
+     before it and read just after:
      bench: DoomSim on :test: at 320x200 x 256 envs, bench actions, 8
        warm-up ticks, then 5 windows of 32 timed ticks of step + render;
        env*frames/s per window, their median and spread, and the
        process's CPU ms per tick beside the wall ms;
      fallback: 4 ticks with portal_pitch="triangle" and half the envs
        pitched, so the triangle path (B3) runs inside the main path (the
-       bench trajectory never overflows the crossing budget).
-The last two lines: the kernels' JSON summary (launches over the whole
-main-path run, and per segment), then the device JSON.
+       bench trajectory never overflows the crossing budget);
+     texstress, texstress_act: DoomSim on :texstress: at 320x200 x 256
+       envs, bench actions, at shipped defaults (the big-level walk with
+       B4) and with portal_global_segs_max=1024 (the active-set path: B6,
+       B5, B2 per env); 4 warm-up ticks, then 3 windows of 8 ticks, with
+       the share of envs that fell back to the triangle path per tick.
+The last two lines: the kernels' JSON summary (launches summed over the
+main-path segments, and per segment), then the device JSON.
 Imports no JAX: the GPU machine has none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -39,6 +51,8 @@ import torch
 
 B_MAIN, W_MAIN, H_MAIN = 256, 320, 200
 WARMUP_TICKS, TIMED_TICKS, WINDOWS, FALLBACK_TICKS = 8, 32, 5, 4
+TEX_WAD, TEX_CAP = ":texstress:", 1024  # portal_global_segs_max of the active set
+TEX_WARMUP, TEX_TICKS, TEX_WINDOWS = 4, 8, 3
 TIMING_CALLS = 20
 PX_CEILING = 16  # per-frame mismatch ceiling of the verify legs (bench.py:90)
 B3_REL_TOL = 1e-6
@@ -53,6 +67,19 @@ KERNELS = {
     "peel_resolve": dict(
         source="tpu_doom_torch/csrc/peel_resolve.cu",
         replaces="tpu_doom/ops/raster_pallas.py:322"),
+    "select_rows": dict(
+        source="tpu_doom_torch/csrc/select_rows.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:1162"),
+    "gather_cells": dict(
+        source="tpu_doom_torch/csrc/gather_cells.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:1075"),
+    "scatter_live": dict(
+        source="tpu_doom_torch/csrc/scatter_live.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:1199"),
+    # B2 reading per-env active tables (raster_pallas.py:854, per_env_tex).
+    "render_portal_fused_per_env": dict(
+        source="tpu_doom_torch/csrc/render_portal.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:854"),
 }
 
 
@@ -243,6 +270,123 @@ def phase_kernels(results):
     results["peel_resolve"].update(max_abs_err=err, ms=ms, plain_ms=plain)
 
 
+@contextlib.contextmanager
+def captured(module, name):
+    """Record the arguments of every call to `module.name` (a kernel
+    wrapper the walk calls) while the block runs."""
+    orig, calls = getattr(module, name), []
+
+    def spy(*args):
+        calls.append(args)
+        return orig(*args)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def bitwise_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def texstress_state():
+    """The :texstress: main-path state: 256 envs after 8 bench ticks."""
+    sim = make_sim(wad_file=TEX_WAD)
+    state = sim.reset()
+    acts = bench_actions(sim, B_MAIN)
+    for _ in range(WARMUP_TICKS):
+        state = sim.step(state, acts)
+    return state
+
+
+def phase_kernels_texstress(results):
+    """B4, B6, B5 and B2's per-env mode on the inputs the port's own walk
+    gives them on :texstress: x 256 envs at 320x200, bitwise against
+    their plain versions."""
+    from tpu_doom_torch.ops import (
+        gather_cells,
+        gather_cells_ref,
+        render_portal_fused,
+        render_portal_fused_ref,
+        scatter_live,
+        scatter_live_ref,
+        select_rows,
+        select_rows_ref,
+    )
+    from tpu_doom_torch.render import portal as P
+
+    state = texstress_state()
+    sim = make_sim(wad_file=TEX_WAD)
+    with captured(P, "select_rows") as calls:
+        P.fused_inputs(sim.portal_scene(), sim.scene, sim.config, W_MAIN, H_MAIN, state)
+    require(len(calls) == 1, f"the :texstress: walk called B4 {len(calls)} times, not once")
+    idx, tab = calls[0]
+    got, want = select_rows(idx, tab), select_rows_ref(idx, tab)
+    torch.cuda.synchronize()
+    same = bitwise_equal(got, want)
+    err = max_abs_err(got, want)
+    ms = time_ms(lambda: select_rows(idx, tab))
+    plain = time_ms(lambda: select_rows_ref(idx, tab))
+    print(f"[kernel] B4 select_rows idx {tuple(idx.shape)} table {tuple(tab.shape)}"
+          f" -> {tuple(got.shape)}: bitwise equal {same} (ceiling 0), max_abs_err"
+          f" {err}; {ms:.4f} ms vs plain {plain:.4f} ms")
+    require(same, "B4 disagrees with its plain version")
+    results["select_rows"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+    del calls, idx, tab, got, want, sim
+
+    sim = make_sim(wad_file=TEX_WAD, portal_global_segs_max=TEX_CAP)
+    require(P.active_segs(sim.portal_scene(), sim.config) > 0,
+            "the active-set path is not engaged at the lowered cap")
+    with captured(P, "scatter_live") as sl, captured(P, "gather_cells") as gc:
+        args, kw, overflow = P.fused_inputs(
+            sim.portal_scene(), sim.scene, sim.config, W_MAIN, H_MAIN, state)
+    require(len(sl) == 1 and len(gc) == 1, "the active-set walk skipped B6 or B5")
+    sidx, live, n_rows = sl[0]
+    got, want = scatter_live(sidx, live, n_rows), scatter_live_ref(sidx, live, n_rows)
+    torch.cuda.synchronize()
+    same = bitwise_equal(got, want)
+    err = max_abs_err(got, want)
+    ms = time_ms(lambda: scatter_live(sidx, live, n_rows))
+    plain = time_ms(lambda: scatter_live_ref(sidx, live, n_rows))
+    print(f"[kernel] B6 scatter_live idx {tuple(sidx.shape)} -> ({sidx.shape[0]},"
+          f" {n_rows}): bitwise equal {same} (ceiling 0), max_abs_err {err},"
+          f" {int(want.sum())} live crossings; {ms:.4f} ms vs plain {plain:.4f} ms")
+    require(same, "B6 disagrees with its plain version")
+    results["scatter_live"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+
+    meta, tex_full, act = gc[0]
+    got, want = gather_cells(meta, tex_full, act), gather_cells_ref(meta, tex_full, act)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    err = max_abs_err(got, want)
+    ms = time_ms(lambda: gather_cells(meta, tex_full, act))
+    plain = time_ms(lambda: gather_cells_ref(meta, tex_full, act))
+    print(f"[kernel] B5 gather_cells meta {tuple(meta.shape)} table"
+          f" {tuple(tex_full.shape)} -> {tuple(got.shape)}: equal {same} (ceiling 0),"
+          f" max_abs_err {err}, {int(meta[..., 2].sum()) * 8} rows copied,"
+          f" {int(overflow.sum())} envs over the active budget; {ms:.4f} ms vs"
+          f" plain {plain:.4f} ms")
+    require(same, "B5 disagrees with its plain version")
+    results["gather_cells"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+    del sl, gc, sidx, live, meta, tex_full, got, want
+
+    require(args[6].dim() == 3, "B2 is not in its per-env mode on the active set")
+    gi, gc_ = render_portal_fused(*args, **kw)
+    wi, wc = render_portal_fused_ref(*args, **kw)
+    torch.cuda.synchronize()
+    mism = int((gi != wi).sum()) + int((gc_ != wc).sum())
+    err = max(max_abs_err(gi, wi), max_abs_err(gc_, wc))
+    ms = time_ms(lambda: render_portal_fused(*args, **kw))
+    plain = time_ms(lambda: render_portal_fused_ref(*args, **kw))
+    print(f"[kernel] B2 render_portal_fused per-env tables {tuple(args[6].shape)}"
+          f" records {tuple(args[0].shape)}: {mism} mismatched idx/cov px"
+          f" (ceiling 0), max_abs_err {err}; {ms:.4f} ms vs plain {plain:.4f} ms")
+    require(mism == 0, f"B2 per-env disagrees with its plain version on {mism} px")
+    results["render_portal_fused_per_env"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+
+
 GOLDEN_SCENARIOS = {
     # tests/golden/regen.py:22-36: pos, yaw, pitch, time, door offset.
     "start": (None, None, None, None, 0.0),
@@ -289,6 +433,33 @@ def phase_goldens():
               f" differ from JAX portal_jnp (ceiling {PX_CEILING})")
         require(n <= PX_CEILING and nc <= PX_CEILING, f"verify pose {i} failed")
 
+    # :texstress: (the big-level walk), 8 states, both texel-table paths.
+    # The ceiling is summed over the 8 envs (bench.py:144-145). `idx` was
+    # rendered stage by stage; `idx_fused` by the JAX package's one
+    # compiled program, which differs from it on this level (see
+    # tests/golden/regen_torch_ref.py) and is printed for the record.
+    from tpu_doom_torch.sim.state import SimState
+
+    with np.load("tests/golden/verify_texstress_ref.npz") as z:
+        tref = {k: z[k] for k in z.files}
+    jax_own = int((tref["idx_fused"] != tref["idx"]).sum())
+    for name, extra in (("shipped defaults", {}),
+                        (f"portal_global_segs_max={TEX_CAP}",
+                         dict(portal_global_segs_max=TEX_CAP))):
+        tsim = make_sim(wad_file=TEX_WAD, batch_size=8, **extra)
+        st = SimState(*(torch.as_tensor(tref[k], device=tsim.device)
+                        for k in SimState._fields))
+        idx, cov = (x.cpu().numpy() for x in tsim.render(st))
+        n = (idx != tref["idx"]).sum(axis=(1, 2))
+        nc = (cov != tref["cov"]).sum(axis=(1, 2))
+        nf = int((idx != tref["idx_fused"]).sum())
+        print(f"[golden] :texstress: {name}, 8 states 320x200: {int(n.sum())} px"
+              f" (per env {n.tolist()}), {int(nc.sum())} cov differ from JAX"
+              f" portal_jnp, summed (ceiling {PX_CEILING}); {nf} px from the JAX"
+              f" one-program render, which differs from portal_jnp by {jax_own}")
+        require(n.sum() <= PX_CEILING and nc.sum() <= PX_CEILING,
+                f":texstress: reference frames failed ({name})")
+
 
 def fallback_sim():
     """The same DoomSim with portal_pitch="triangle" and half the envs
@@ -300,67 +471,115 @@ def fallback_sim():
     return sim, state._replace(pitch=pitch), bench_actions(sim, B_MAIN)
 
 
+def run_ticks(sim, state, acts, ticks, fell=None):
+    """`ticks` ticks of step + render -> (state, checksum, coverage sum)
+    as device scalars; `fell` collects the envs that took the triangle
+    fallback per tick."""
+    from tpu_doom_torch.render import portal as P
+
+    check = torch.zeros((), dtype=torch.int64, device=sim.device)
+    cov_sum = torch.zeros((), dtype=torch.float64, device=sim.device)
+    for _ in range(ticks):
+        with captured(P, "render_frames") as fb:
+            state, idx, cov = sim.step_render(state, acts)
+        if fell is not None:
+            fell.append(sum(int(c[2].pos.shape[0]) for c in fb))
+        check += idx.sum(dtype=torch.int64)
+        cov_sum += cov.sum(dtype=torch.float64)
+    return state, check, cov_sum
+
+
+def timed_segment(tag, label, sim, state, acts, windows, ticks, needed):
+    """One main-path segment: the launch counts set to 0, `windows` timed
+    windows of `ticks` ticks of step + render, the counts read. Prints
+    every window, the median and min/max env*frames/s, the checksum, the
+    coverage and the share of envs on the triangle fallback per tick;
+    requires each `needed` kernel to have run every tick. Returns the
+    launch counts."""
+    from tpu_doom_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    check = torch.zeros((), dtype=torch.int64, device=sim.device)
+    cov_sum = torch.zeros((), dtype=torch.float64, device=sim.device)
+    rates, fell = [], []
+    for w in range(windows):
+        t0, c0 = time.perf_counter(), time.process_time()
+        state, c, cs = run_ticks(sim, state, acts, ticks, fell)
+        torch.cuda.synchronize()
+        dt, cpu = time.perf_counter() - t0, time.process_time() - c0
+        check += c
+        cov_sum += cs
+        rates.append(B_MAIN * ticks / dt)
+        print(f"[{tag}] window {w}: {ticks} ticks in {dt:.4f} s,"
+              f" {dt * 1e3 / ticks:.4f} ms/tick wall,"
+              f" {cpu * 1e3 / ticks:.4f} ms/tick process CPU:"
+              f" {rates[-1]:.1f} env*frames/s")
+    counts = launch_counts()
+    coverage = float(cov_sum) / (windows * ticks * B_MAIN * W_MAIN * H_MAIN)
+    share = [round(f / B_MAIN, 4) for f in fell]
+    print(f"[{tag}] {label}, {windows} windows of {ticks} ticks of step + render:"
+          f" median {float(np.median(rates)):.1f} env*frames/s (min"
+          f" {min(rates):.1f}, max {max(rates):.1f}); checksum {int(check)},"
+          f" coverage {coverage:.4f}; share of envs on the triangle fallback per"
+          f" tick {share}; launches {counts}")
+    for name in needed:
+        require(counts[name] >= windows * ticks, f"{tag}: {name} did not run every tick")
+    require(int(check) > 0 and bool(torch.isfinite(state.pos).all()),
+            f"{tag}: frames are all zero or the state is not finite")
+    require(coverage > 0.5, f"{tag}: coverage {coverage} <= 0.5")
+    return counts
+
+
 def phase_main(results):
     from tpu_doom_torch.ops import launch_counts, reset_launch_counts
 
     sim = make_sim()
     state = sim.reset()
     acts = bench_actions(sim, B_MAIN)
-    for _ in range(WARMUP_TICKS):
-        state, idx, cov = sim.step_render(state, acts)
+    state, _, _ = run_ticks(sim, state, acts, WARMUP_TICKS)
     fsim, fstate, facts = fallback_sim()
     torch.cuda.synchronize()
     load = ", ".join(f"{x:.2f}" for x in os.getloadavg())
     print(f"[host] {os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} usable;"
           f" load average {load}")
+    segments = {"bench": timed_segment(
+        "main", f":test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs", sim, state, acts,
+        WINDOWS, TIMED_TICKS, ("player_move", "render_portal_fused"))}
 
     reset_launch_counts()
-    check = torch.zeros((), dtype=torch.int64, device=sim.device)
-    cov_sum = torch.zeros((), dtype=torch.float64, device=sim.device)
-    rates = []
-    for w in range(WINDOWS):
-        t0, c0 = time.perf_counter(), time.process_time()
-        for _ in range(TIMED_TICKS):
-            state, idx, cov = sim.step_render(state, acts)
-            check += idx.sum(dtype=torch.int64)
-            cov_sum += cov.sum(dtype=torch.float64)
-        torch.cuda.synchronize()
-        dt, cpu = time.perf_counter() - t0, time.process_time() - c0
-        rates.append(B_MAIN * TIMED_TICKS / dt)
-        print(f"[main] window {w}: {TIMED_TICKS} ticks in {dt:.4f} s,"
-              f" {dt * 1e3 / TIMED_TICKS:.4f} ms/tick wall,"
-              f" {cpu * 1e3 / TIMED_TICKS:.4f} ms/tick process CPU:"
-              f" {rates[-1]:.1f} env*frames/s")
-    bench = launch_counts()
-    coverage = float(cov_sum) / (WINDOWS * TIMED_TICKS * idx.numel())
-    print(f"[main] :test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs, {WINDOWS} windows"
-          f" of {TIMED_TICKS} ticks of step + render: median"
-          f" {float(np.median(rates)):.1f} env*frames/s (min {min(rates):.1f},"
-          f" max {max(rates):.1f}); checksum {int(check)}, coverage"
-          f" {coverage:.4f}, launches {bench}")
-
-    for _ in range(FALLBACK_TICKS):
-        fstate, fidx, fcov = fsim.step_render(fstate, facts)
+    fstate, _, fcov = run_ticks(fsim, fstate, facts, FALLBACK_TICKS)
     torch.cuda.synchronize()
-    counts = launch_counts()
-    fallback = {k: counts[k] - bench[k] for k in counts}
-    fcoverage = float(fcov.float().mean())
+    fallback = segments["fallback"] = launch_counts()
+    fcoverage = float(fcov) / (FALLBACK_TICKS * B_MAIN * W_MAIN * H_MAIN)
     print(f"[fallback] portal_pitch=triangle, {B_MAIN // 2} envs pitched 0.3,"
           f" {FALLBACK_TICKS} ticks: launches {fallback}, coverage"
           f" {fcoverage:.4f}")
-
-    ticks = WINDOWS * TIMED_TICKS
-    require(bench["player_move"] >= ticks, "B1 did not run every tick")
-    require(bench["render_portal_fused"] >= ticks, "B2 did not run every tick")
-    require(int(check) > 0 and bool(torch.isfinite(state.pos).all()),
-            "main path frames are all zero or the state is not finite")
-    require(coverage > 0.5, f"coverage {coverage} <= 0.5")
     require(fallback["peel_resolve"] > 0, "B3 did not run in the fallback")
     require(fcoverage > 0.5, f"fallback coverage {fcoverage} <= 0.5")
+    del sim, state, fsim, fstate
+
+    for seg, extra, needed in (
+            ("texstress", {}, ("player_move", "render_portal_fused", "select_rows")),
+            ("texstress_act", dict(portal_global_segs_max=TEX_CAP),
+             ("player_move", "render_portal_fused", "select_rows", "scatter_live",
+              "gather_cells", "render_portal_fused_per_env"))):
+        sim = make_sim(wad_file=TEX_WAD, **extra)
+        state = sim.reset()
+        acts = bench_actions(sim, B_MAIN)
+        state, _, _ = run_ticks(sim, state, acts, TEX_WARMUP)
+        torch.cuda.synchronize()
+        segments[seg] = timed_segment(
+            seg, f"{TEX_WAD} {W_MAIN}x{H_MAIN} x {B_MAIN} envs"
+            f" {extra or 'shipped defaults'}", sim, state, acts, TEX_WINDOWS,
+            TEX_TICKS, needed)
+        del sim, state
+
+    totals = {k: sum(c[k] for c in segments.values()) for k in results}
     for name, r in results.items():
-        require(counts[name] > 0, f"{name} never launched on the main path")
-        r.update(launches=counts[name], bench_launches=bench[name],
-                 fallback_launches=fallback[name])
+        require(totals[name] > 0, f"{name} never launched on the main path")
+        r.update(launches=totals[name],
+                 **{f"{seg}_launches": c[name] for seg, c in segments.items()})
+    return list(segments)
 
 
 def main():
@@ -369,10 +588,11 @@ def main():
     results = {name: dict(name=name, route="cuda", **meta)
                for name, meta in KERNELS.items()}
     phase_kernels(results)
+    phase_kernels_texstress(results)
     phase_goldens()
-    phase_main(results)
+    segments = phase_main(results)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bench_launches", "fallback_launches")
+             "ms", "plain_ms", *(f"{seg}_launches" for seg in segments))
     print(json.dumps({"kernels": [{k: results[n][k] for k in order}
                                   for n in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

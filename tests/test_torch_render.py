@@ -306,10 +306,17 @@ def test_doom2_portal_frames_match_jax():
         assert int((ct[e].numpy() != cj[e]).sum()) <= 16, e
 
 
-def test_big_level_walk_raises():
-    """Levels past the small-level branch raise, naming ROADMAP A.8,
-    rather than rendering something else."""
-    sim = TorchSim(GameConfig(wad_file=":stress:", width=32, height=20,
-                              batch_size=1, raster_backend="portal"), "cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        sim.render(sim.reset())
+def test_stress_level_renders_through_big_walk():
+    """:stress: (962 walk rows) renders through the big-level walk: the
+    visible-seg cull and B4's plain version (crossing compaction is off
+    there), within 16 px of JAX portal_jnp per env."""
+    kw = dict(wad_file=":stress:", width=32, height=20, batch_size=2)
+    simj = JaxSim(GameConfig(raster_backend="portal_jnp", render_env_chunk=0, **kw))
+    simt = TorchSim(GameConfig(raster_backend="portal", **kw), "cpu")
+    assert simt.portal_scene()["has_back"].shape[0] > 192
+    s = simj.reset(2)._replace(yaw=jnp.asarray([0.0, 2.2], jnp.float32))
+    ij, cj = (np.asarray(x) for x in simj.render(s))
+    it, ct = simt.render(state_from_numpy(TO_NP(s), "cpu"))
+    for e in range(2):
+        assert int((it[e].numpy() != ij[e]).sum()) <= 16, e
+        assert int((ct[e].numpy() != cj[e]).sum()) <= 16, e

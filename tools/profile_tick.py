@@ -2,10 +2,13 @@
 """Where a tick of the PyTorch port's main path spends its time.
 
     python3 tools/profile_tick.py                # the main cell, on CUDA
+    python3 tools/profile_tick.py --wad :texstress: [--global-segs-max 1024]
     python3 tools/profile_tick.py --device cpu --batch 2 --width 64 --height 40
 
-Runs `DoomSim` of `tpu_doom_torch` on `:test:` (default 320x200 x 256
-envs, bench actions, clip_substeps=4) and prints:
+Runs `DoomSim` of `tpu_doom_torch` on `--wad` (default `:test:`, 320x200
+x 256 envs, bench actions, clip_substeps=4; `--global-segs-max` lowers
+portal_global_segs_max, so that a big level takes the active-set path)
+and prints:
   * host-clock ms per tick of step + render, step alone, render alone and
     the walk alone (`render.portal.walk`), each the mean of --ticks calls
     that end in a synchronize;
@@ -33,7 +36,8 @@ from chip_smoke import bench_actions, make_sim  # noqa: E402
 from tpu_doom_torch.render import portal as P  # noqa: E402
 
 KERNEL_NAMES = ("player_move_kernel", "render_portal_kernel",
-                "peel_resolve_kernel", "radixSort")
+                "peel_resolve_kernel", "select_rows_kernel",
+                "scatter_live", "gather_cells_kernel", "radixSort")
 
 
 def sync(device):
@@ -54,6 +58,8 @@ def ms_per_call(fn, device, n):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--wad", default=":test:")
+    ap.add_argument("--global-segs-max", type=int, default=None)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=200)
@@ -65,8 +71,11 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    sim = make_sim(dev, batch_size=args.batch, width=args.width,
-                   height=args.height)
+    extra = {}
+    if args.global_segs_max is not None:
+        extra["portal_global_segs_max"] = args.global_segs_max
+    sim = make_sim(dev, wad_file=args.wad, batch_size=args.batch,
+                   width=args.width, height=args.height, **extra)
     state = sim.reset()
     acts = bench_actions(sim, args.batch)
     with torch.no_grad():
@@ -84,12 +93,13 @@ def main(argv=None):
         t_tick = ms_per_call(tick, dev, n)
         t_step = ms_per_call(lambda: sim.step(state, acts), dev, n)
         t_render = ms_per_call(lambda: sim.render(state), dev, n)
+        act = P.active_segs(pscene, cfg)
         t_walk = ms_per_call(
             lambda: P.walk(pscene, sim.scene, cfg, args.width, args.height,
-                           int(cfg.portal_crossings), state), dev, n)
-        print(f"[split] ms/tick: step+render {t_tick:.4f}, step {t_step:.4f},"
-              f" render {t_render:.4f}, of which walk {t_walk:.4f}"
-              f" (host clock, mean of {n})")
+                           int(cfg.portal_crossings), state, act), dev, n)
+        print(f"[split] {args.wad} active_segs {act}: ms/tick: step+render"
+              f" {t_tick:.4f}, step {t_step:.4f}, render {t_render:.4f}, of"
+              f" which walk {t_walk:.4f} (host clock, mean of {n})")
 
         acts_ = [torch.profiler.ProfilerActivity.CPU]
         if dev.type == "cuda":

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-`load()` compiles every `csrc/*.cu` with nvcc into one shared library
+`load()` compiles every `csrc/*.cu` with nvcc (one process per source,
+in parallel) and links them into one shared library
 with a plain C interface under `build/tpu_doom_torch/` (beside the
 package, listed in .gitignore) on first use, and again only when a
 source or the flags change: the library's file name carries a hash of
@@ -41,13 +42,21 @@ SIGNATURES = {
     # rows, state8, out, B, M, radius, height, dt, substeps, noclip, stream
     "tdt_player_move": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P],
     # records, words, cam, shear, dxz, sky, tex, hole, cmap, idx, cov,
-    # B, R, W, H, n_words, hc, S1, holeless, p11, n_rows, stream
+    # B, R, W, H, n_words, hc, S1, holeless, per_env, tex_stride, p11,
+    # n_rows, stream
     "tdt_render_portal": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                          _P],
     # rows, attrs, grid, chunk_bounds, out, B, T_pad, P, P_pad,
     # n_layers, tile_p, chunk_t, stream
     "tdt_peel_resolve": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P],
+    # idx, tab, out, B, N, S, C, stream
+    "tdt_select_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # idx, live, out, B, N, S, stream
+    "tdt_scatter_live": [_P, _P, _P, _I, _I, _I, _P],
+    # meta, tex, out, B, C, tex_rows, out_rows, stream
+    "tdt_gather_cells": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -78,25 +87,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtpu_doom_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; returns their joined stdout + stderr,
+    or raises RuntimeError naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"tpu_doom_torch: nvcc failed ({p.returncode}):\n"
+                f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> tuple[Path, float]:
     """Compile the kernels if the library is missing; returns (path,
-    seconds spent compiling; 0.0 when it was already built)."""
+    seconds spent compiling; 0.0 when it was already built). Each source
+    compiles to an object in its own nvcc process, all at once, and one
+    more nvcc links them."""
     nvcc = find_nvcc()
     lib = library_path()
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"tpu_doom_torch: nvcc failed ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    _ptxas_log(lib).write_text(proc.stdout + proc.stderr)
+    log = _run_all([[nvcc, *compile_flags, "-c", str(s), "-o", str(o)]
+                    for s, o in zip(srcs, objs)])
+    _run_all([[nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
+    _ptxas_log(lib).write_text(log)
     os.replace(tmp, lib)
     return lib, time.perf_counter() - t0
 

@@ -8,6 +8,11 @@
 * Python scalars in JAX expressions are weakly typed: they round to f32
   before the op. `f32` rounds a Python float the same way, for scalar
   arithmetic done on the host.
+* PyTorch divides by a host scalar as a multiplication by its
+  reciprocal on CUDA, and computes `scalar / tensor` as the tensor's
+  reciprocal times the scalar everywhere: two roundings where JAX and
+  the kernels round once. `div` and `rdiv` divide by, and divide a
+  scalar by, a tensor with one rounding.
 """
 
 from __future__ import annotations
@@ -44,3 +49,9 @@ def div(x: torch.Tensor, s: float) -> torch.Tensor:
     reciprocal (two roundings); a device scalar keeps the true division.
     The scalars are config constants, so each is cached on its device."""
     return x / _scalar(s, x.dtype, x.device)
+
+
+def rdiv(s: float, x: torch.Tensor) -> torch.Tensor:
+    """s / x rounded once, as JAX divides a weak-typed scalar by an
+    array (PyTorch's `s / x` is `x.reciprocal() * s`)."""
+    return _scalar(s, x.dtype, x.device) / x

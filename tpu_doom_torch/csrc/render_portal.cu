@@ -11,6 +11,14 @@
 // alpha bit is set), then shades with direct loads from the compact texel,
 // hole and colormap tables. Record reads put columns on adjacent threads
 // (coalesced); the 8 rows of a block re-read them from L1.
+//
+// Two texel-table modes, as the TPU kernel's `per_env_tex` flag:
+//   global  (per_env = 0): one (S1, 128) int8 table of texel - 128 shared
+//           by all envs, transparency from the packed `hole` bits (none
+//           read on a holeless level);
+//   per-env (per_env = 1): env b reads its own active table, (S1, 128)
+//           int16 at tex + b * tex_stride, values 0..255 and 256 for a
+//           hole, so the hole rides the value and `hole` is not read.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,10 +58,11 @@ __global__ void render_portal_kernel(
     const float* __restrict__ records, const int32_t* __restrict__ words,
     const float* __restrict__ cam, const float* __restrict__ shear,
     const float* __restrict__ dxz, const float* __restrict__ sky,
-    const int8_t* __restrict__ tex, const int8_t* __restrict__ hole,
+    const void* __restrict__ tex, const int8_t* __restrict__ hole,
     const int8_t* __restrict__ cmap, float* __restrict__ out_idx,
     float* __restrict__ out_cov, int R, int W, int H, int n_words, int hc,
-    int S1, int holeless, float p11, int n_rows) {
+    int S1, int holeless, int per_env, int tex_stride, float p11,
+    int n_rows) {
   const int col = blockIdx.x * kBlockX + threadIdx.x;
   const int row = blockIdx.y * kBlockY + threadIdx.y;
   const int b = blockIdx.z;
@@ -137,11 +146,19 @@ __global__ void render_portal_kernel(
   int crow = f2i(floorf((1.0f - lval) * (float)n_rows));
   crow = min(max(crow, 0), n_rows - 1);
 
-  const int v1 = (int)__ldg(tex + lin) + 128;
+  int v1;
   bool is_hole = false;
-  if (!holeless) {
-    const int hbyte = (int)__ldg(hole + (lin >> 3)) + 128;
-    is_hole = ((hbyte >> (lin & 7)) & 1) == 1;
+  if (per_env) {
+    const int16_t* tb = (const int16_t*)tex + (size_t)b * tex_stride;
+    const int v = (int)__ldg(tb + lin);
+    is_hole = v == 256;
+    v1 = min(v, 255);
+  } else {
+    v1 = (int)__ldg((const int8_t*)tex + lin) + 128;
+    if (!holeless) {
+      const int hbyte = (int)__ldg(hole + (lin >> 3)) + 128;
+      is_hole = ((hbyte >> (lin & 7)) & 1) == 1;
+    }
   }
   const float v2 = (float)((int)__ldg(cmap + crow * 256 + v1) + 128);
   const bool covered = covered0 && (is_sky || !is_hole);
@@ -157,15 +174,15 @@ extern "C" int tdt_render_portal(
     const void* records, const void* words, const void* cam, const void* shear,
     const void* dxz, const void* sky, const void* tex, const void* hole,
     const void* cmap, void* out_idx, void* out_cov, int B, int R, int W, int H,
-    int n_words, int hc, int S1, int holeless, float p11, int n_rows,
-    void* stream) {
+    int n_words, int hc, int S1, int holeless, int per_env, int tex_stride,
+    float p11, int n_rows, void* stream) {
   dim3 block(kBlockX, kBlockY);
   dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY, B);
   render_portal_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)records, (const int32_t*)words, (const float*)cam,
       (const float*)shear, (const float*)dxz, (const float*)sky,
-      (const int8_t*)tex, (const int8_t*)hole, (const int8_t*)cmap,
-      (float*)out_idx, (float*)out_cov, R, W, H, n_words, hc, S1, holeless,
-      p11, n_rows);
+      tex, (const int8_t*)hole, (const int8_t*)cmap, (float*)out_idx,
+      (float*)out_cov, R, W, H, n_words, hc, S1, holeless, per_env,
+      tex_stride, p11, n_rows);
   return (int)cudaGetLastError();
 }

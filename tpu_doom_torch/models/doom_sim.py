@@ -1,9 +1,12 @@
 """DoomSim: the user-facing simulator on PyTorch.
 
 Port of `tpu_doom/models/doom_sim.py` (reset / null_actions / step /
-render / step_render / render_rgb) with an explicit `device`. `rollout`,
-`step_n`, `LevelBank`, checkpoints and the CLI are not ported yet
-(ROADMAP A).
+render / step_render / render_rgb) with an explicit `device`. The portal
+backend renders every level, big ones (more than 192 walk rows, such as
+`:stress:` and `:texstress:`) through the big-level walk and, when the
+level's texel table exceeds `portal_global_segs_max`, the active-set
+path. `rollout`, `step_n`, `LevelBank`, checkpoints and the CLI are not
+ported yet (ROADMAP A).
 """
 
 from __future__ import annotations

@@ -8,10 +8,16 @@ nvcc build runs at the first launch (`tpu_doom_torch._build.load`).
 
 from .collision import player_move, player_move_ref
 from .raster import (
+    gather_cells,
+    gather_cells_ref,
     peel_resolve,
     peel_resolve_ref,
     render_portal_fused,
     render_portal_fused_ref,
+    scatter_live,
+    scatter_live_ref,
+    select_rows,
+    select_rows_ref,
 )
 
 # name -> wrapper, for resetting and reading the launch counts.
@@ -19,16 +25,24 @@ KERNELS = {
     "player_move": player_move,
     "render_portal_fused": render_portal_fused,
     "peel_resolve": peel_resolve,
+    "select_rows": select_rows,
+    "gather_cells": gather_cells,
+    "scatter_live": scatter_live,
 }
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    render_portal_fused.per_env_launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Launches per kernel; B2's per-env-table launches also count on
+    their own, as `render_portal_fused_per_env`."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts["render_portal_fused_per_env"] = render_portal_fused.per_env_launches
+    return counts
 
 
 __all__ = [
@@ -41,4 +55,10 @@ __all__ = [
     "render_portal_fused_ref",
     "peel_resolve",
     "peel_resolve_ref",
+    "select_rows",
+    "select_rows_ref",
+    "gather_cells",
+    "gather_cells_ref",
+    "scatter_live",
+    "scatter_live_ref",
 ]

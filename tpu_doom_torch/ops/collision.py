@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from .._build import check, load
-from .._numerics import f32
+from .._numerics import f32, rdiv
 
 BIG = 1e4
 INF = float("inf")
@@ -216,7 +216,7 @@ def player_move_ref(rows, state8, radius: float, height: float, dt: float,
         dx, dy, dz = cvx * time_left, cvy * time_left, cvz * time_left
         ct, cnx, cny, cnz = _sweep(comp, mask, cpx, cpy, cpz, dx, dy, dz, radius)
         dmag = torch.sqrt(dx * dx + dy * dy + dz * dz)
-        adjusted = ct - 0.001 / torch.where(dmag > 0.0, dmag, 1.0)
+        adjusted = ct - rdiv(0.001, torch.where(dmag > 0.0, dmag, 1.0))
         hit = ct < INF
         blocked = hit & (adjusted < 1.0) & ~done
         tcl = torch.clamp(ct, 0.0, 1.0)

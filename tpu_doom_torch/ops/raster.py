@@ -30,7 +30,18 @@ thread per pixel; each overlapping chunk's rows are staged in shared
 memory; per-pixel (z, id, position) of the running best stay in
 registers. Bound: T x P coverage tests per layer (compute).
 
-Both wrappers take the plain version for CPU tensors and launch the
+B4, B5 and B6 serve the big-level walk (render/portal.py):
+B4 `select_rows` replaces `raster_pallas.py:select_rows_pallas`, the exact
+row select of the per-seg attribute table at every crossing (the TPU's
+3-way bf16 split and in-VMEM one-hot are a direct load here, csrc/
+select_rows.cu); B6 `scatter_live` replaces `scatter_live_pallas`, the
+per-seg count of live crossings (a shared-memory histogram, csrc/
+scatter_live.cu); B5 `gather_cells` replaces `gather_cells_pallas`, the
+copy of each env's visible texture cells into its active texel table
+(one block per cell and env, 16-byte copies, csrc/gather_cells.cu).
+B2 reads those per-env tables in its per-env mode.
+
+Every wrapper takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors, counting launches in `wrapper.launches`.
 """
 
@@ -39,7 +50,7 @@ from __future__ import annotations
 import torch
 
 from .._build import check, load
-from .._numerics import div, f32, to_i32
+from .._numerics import div, f32, rdiv, to_i32
 
 INF = float("inf")
 BIG_ID = 2**30
@@ -57,21 +68,24 @@ NCH = 16
 
 
 def render_portal_fused_ref(records, words, cam, hc: int, dxz, sky_img,
-                            tex_i8, hole_bytes, cmap_i8, height: int,
+                            tex, hole_bytes, cmap_i8, height: int,
                             p11: float, n_rows: int, shear=None):
     """Plain version of B2.
 
     records (B, R, 16, W) f32; words (B, K, n_words, W) i32; cam (B, 3);
-    dxz (B, 2, W); sky_img (B, H, W) f32; tex_i8 (S1, 128) s8;
-    hole_bytes (Sh, 128) s8 or None for a holeless level; cmap_i8
-    (S2, 128) s8; shear (B,) or None. Returns (palette index, covered),
-    each (B, H, W) f32."""
+    dxz (B, 2, W); sky_img (B, H, W) f32; tex either the global compact
+    table (S1, 128) s8 (texel - 128), with hole_bytes (Sh, 128) s8 or
+    None for a holeless level, or the per-env active tables (B, S1, 128)
+    i16 (texel 0..255, 256 = hole; hole_bytes unused); cmap_i8 (S2, 128)
+    s8; shear (B,) or None. Returns (palette index, covered), each
+    (B, H, W) f32."""
     B, R, _, W = records.shape
     H = height
     dev = records.device
     p11 = f32(p11)
     n_words = words.shape[2]
-    S1 = tex_i8.shape[0]
+    per_env = tex.dim() == 3
+    S1 = tex.shape[1] if per_env else tex.shape[0]
     if shear is None:
         shear = torch.zeros((B,), dtype=torch.float32, device=dev)
     y = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[None, :, None]
@@ -142,54 +156,71 @@ def render_portal_fused_ref(records, words, cam, hc: int, dxz, sky_img,
 
     w_pix = torch.where(wall_like | (is_sky & (ch[:, 6] > 0.0)), ch[:, 6], t_flat)
     light = ch[:, 5]
-    dist_s = torch.clamp_max(1.0 - 0.9 / (w_pix + 0.9), 1.0)
-    dist_d = torch.clamp_max(1.0 - 1.0 / (w_pix + 1.0), 1.0)
+    dist_s = torch.clamp_max(1.0 - rdiv(0.9, w_pix + 0.9), 1.0)
+    dist_d = torch.clamp_max(1.0 - rdiv(1.0, w_pix + 1.0), 1.0)
     lval = torch.where(
         is_decor, torch.minimum(light, light * 2.0 - dist_d), light * 2.0 - dist_s
     )
     crow = to_i32(torch.floor((1.0 - lval) * float(n_rows))).clamp(0, n_rows - 1)
 
     lin_l = lin.long()
-    v1 = tex_i8.reshape(-1).to(torch.int32)[lin_l] + 128
-    if hole_bytes is None:
-        hole = torch.zeros_like(covered0)
+    if per_env:
+        v = torch.gather(tex.reshape(B, -1).to(torch.int32), 1,
+                         lin_l.reshape(B, -1)).reshape(B, H, W)
+        hole = v == 256
+        v1 = torch.clamp_max(v, 255)
     else:
-        hbyte = hole_bytes.reshape(-1).to(torch.int32)[lin_l >> 3] + 128
-        hole = ((hbyte >> (lin & 7)) & 1) == 1
+        v1 = tex.reshape(-1).to(torch.int32)[lin_l] + 128
+        if hole_bytes is None:
+            hole = torch.zeros_like(covered0)
+        else:
+            hbyte = hole_bytes.reshape(-1).to(torch.int32)[lin_l >> 3] + 128
+            hole = ((hbyte >> (lin & 7)) & 1) == 1
     v2 = (cmap_i8.reshape(-1).to(torch.int32)[(crow * 256 + v1).long()] + 128).float()
     covered = covered0 & (is_sky | ~hole)
     val = torch.where(is_sky, sky_img, v2)
     return torch.where(covered, val, 0.0), covered.float()
 
 
-def render_portal_fused(records, words, cam, hc: int, dxz, sky_img, tex_i8,
+def render_portal_fused(records, words, cam, hc: int, dxz, sky_img, tex,
                         hole_bytes, cmap_i8, height: int, p11: float,
                         n_rows: int, shear=None):
     """Kernel B2 for CUDA tensors, its plain version for CPU tensors
-    (arguments as `render_portal_fused_ref`)."""
+    (arguments as `render_portal_fused_ref`). Per-env tables may be a
+    row slice of a bigger buffer (`gather_cells` output): the kernel
+    takes their env stride."""
     if records.device.type == "cpu":
         return render_portal_fused_ref(
-            records, words, cam, hc, dxz, sky_img, tex_i8, hole_bytes,
+            records, words, cam, hc, dxz, sky_img, tex, hole_bytes,
             cmap_i8, height, p11, n_rows, shear)
     if records.device.type != "cuda":
         raise ValueError(f"render_portal_fused: unsupported device {records.device}")
     B, R, nch, W = records.shape
     H = int(height)
     K, n_words = words.shape[1], words.shape[2]
+    per_env = tex.dim() == 3
     if (nch != NCH or R != K * RECORDS_PER_CROSSING or words.shape != (B, K, n_words, W)
             or cam.shape != (B, 3) or dxz.shape != (B, 2, W)
-            or sky_img.shape != (B, H, W) or tex_i8.shape[1] != 128
-            or cmap_i8.shape[1] != 128):
+            or sky_img.shape != (B, H, W) or tex.shape[-1] != 128
+            or (per_env and tex.shape[0] != B) or cmap_i8.shape[1] != 128):
         raise ValueError("render_portal_fused: bad shapes")
-    if (records.dtype, words.dtype, tex_i8.dtype, cmap_i8.dtype) != (
-            torch.float32, torch.int32, torch.int8, torch.int8):
+    tex_dtype = torch.int16 if per_env else torch.int8
+    if (records.dtype, words.dtype, tex.dtype, cmap_i8.dtype) != (
+            torch.float32, torch.int32, tex_dtype, torch.int8):
         raise ValueError("render_portal_fused: bad dtypes")
     dev = records.device
     if shear is None:
         shear = torch.zeros((B,), dtype=torch.float32, device=dev)
     args = [t.contiguous() for t in (records, words, cam.float(), shear.float(),
-                                     dxz.float(), sky_img.float(), tex_i8)]
-    holeless = hole_bytes is None
+                                     dxz.float(), sky_img.float())]
+    if per_env:
+        if tex.stride(2) != 1 or tex.stride(1) != 128:
+            tex = tex.contiguous()
+        S1, tex_stride = tex.shape[1], tex.stride(0)
+    else:
+        tex = tex.contiguous()
+        S1, tex_stride = tex.shape[0], 0
+    holeless = per_env or hole_bytes is None
     hole = (torch.zeros((1, 128), dtype=torch.int8, device=dev) if holeless
             else hole_bytes.contiguous())
     cmap = cmap_i8.contiguous()
@@ -197,16 +228,18 @@ def render_portal_fused(records, words, cam, hc: int, dxz, sky_img, tex_i8,
     cov = torch.empty((B, H, W), dtype=torch.float32, device=dev)
     lib = load()
     check(lib.tdt_render_portal(
-        *[t.data_ptr() for t in args], hole.data_ptr(), cmap.data_ptr(),
-        idx.data_ptr(), cov.data_ptr(), B, R, W, H, n_words, int(hc),
-        tex_i8.shape[0], int(holeless), f32(p11), int(n_rows),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *[t.data_ptr() for t in args], tex.data_ptr(), hole.data_ptr(),
+        cmap.data_ptr(), idx.data_ptr(), cov.data_ptr(), B, R, W, H, n_words,
+        int(hc), S1, int(holeless), int(per_env), tex_stride, f32(p11),
+        int(n_rows), torch.cuda.current_stream(dev).cuda_stream,
     ), "render_portal_fused")
     render_portal_fused.launches += 1
+    render_portal_fused.per_env_launches += int(per_env)
     return idx, cov
 
 
 render_portal_fused.launches = 0
+render_portal_fused.per_env_launches = 0  # of those, in the per-env mode
 
 
 # ---------------------------------------------------------------------------
@@ -336,3 +369,156 @@ def peel_resolve(rows, attrs, grid, ybounds, n_layers: int,
 
 
 peel_resolve.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B4: exact row select (the big-level walk's attribute select).
+# ---------------------------------------------------------------------------
+
+SELECT_TILE_N = 64  # csrc/select_rows.cu kTileN
+SMEM_LIMIT = 48 * 1024  # static shared-memory limit of a launch
+
+
+def select_rows_ref(idx, tab):
+    """Plain version of B4: idx (B, N) i32, tab (B, S, C) f32 -> (B, C, N)
+    f32 with out[b, :, n] = tab[b, idx[b, n], :] (idx clamped to [0, S),
+    as a JAX gather clamps). `+ 0.0` turns -0.0 into +0.0, as the TPU
+    kernel's one-hot sum does."""
+    B, S, C = tab.shape
+    ix = idx.long().clamp(0, S - 1)
+    rows = torch.gather(tab, 1, ix[:, :, None].expand(-1, -1, C))  # (B, N, C)
+    return (rows + 0.0).transpose(1, 2).contiguous()
+
+
+def select_rows(idx, tab):
+    """Kernel B4 for CUDA tensors, its plain version for CPU tensors."""
+    if idx.device.type == "cpu":
+        return select_rows_ref(idx, tab)
+    if idx.device.type != "cuda":
+        raise ValueError(f"select_rows: unsupported device {idx.device}")
+    B, N = idx.shape
+    if tab.dim() != 3 or tab.shape[0] != B or tab.shape[1] < 1:
+        raise ValueError("select_rows: bad shapes")
+    S, C = tab.shape[1], tab.shape[2]
+    if SELECT_TILE_N * (C + 1) * 4 > SMEM_LIMIT:
+        raise ValueError(f"select_rows: {C} columns exceed the kernel's tile")
+    if (idx.dtype, tab.dtype) != (torch.int32, torch.float32):
+        raise ValueError("select_rows: bad dtypes")
+    idx, tab = idx.contiguous(), tab.contiguous()
+    out = torch.empty((B, C, N), dtype=torch.float32, device=idx.device)
+    if out.numel() == 0:
+        return out
+    check(load().tdt_select_rows(
+        idx.data_ptr(), tab.data_ptr(), out.data_ptr(), B, N, S, C,
+        torch.cuda.current_stream(idx.device).cuda_stream,
+    ), "select_rows")
+    select_rows.launches += 1
+    return out
+
+
+select_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B6: seg-live counts (the active-set walk's scatter).
+# ---------------------------------------------------------------------------
+
+
+def scatter_live_ref(idx, live, S: int):
+    """Plain version of B6: idx (B, N) i32, live (B, N) f32 -> (B, S) f32
+    with cnt[b, s] = sum of live[b, n] over idx[b, n] == s; positions
+    with idx outside [0, S) add nothing. The walk's live values are 0 or
+    1, so the sums are exact integers in any order."""
+    B = idx.shape[0]
+    ok = (idx >= 0) & (idx < S)
+    out = torch.zeros((B, S), dtype=torch.float32, device=idx.device)
+    return out.scatter_add_(1, torch.where(ok, idx, 0).long(),
+                            torch.where(ok, live, 0.0))
+
+
+def scatter_live(idx, live, S: int):
+    """Kernel B6 for CUDA tensors, its plain version for CPU tensors."""
+    if idx.device.type == "cpu":
+        return scatter_live_ref(idx, live, S)
+    if idx.device.type != "cuda":
+        raise ValueError(f"scatter_live: unsupported device {idx.device}")
+    B, N = idx.shape
+    if live.shape != (B, N) or S < 1:
+        raise ValueError("scatter_live: bad shapes")
+    if (idx.dtype, live.dtype) != (torch.int32, torch.float32):
+        raise ValueError("scatter_live: bad dtypes")
+    idx, live = idx.contiguous(), live.contiguous()
+    out = torch.zeros((B, S), dtype=torch.float32, device=idx.device)
+    if B * N == 0:
+        return out
+    check(load().tdt_scatter_live(
+        idx.data_ptr(), live.data_ptr(), out.data_ptr(), B, N, int(S),
+        torch.cuda.current_stream(idx.device).cuda_stream,
+    ), "scatter_live")
+    scatter_live.launches += 1
+    return out
+
+
+scatter_live.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B5: active-set gather (per-env texel tables).
+# ---------------------------------------------------------------------------
+
+CELL_BLOCK_ROWS = 8  # meta counts 8-row blocks (the walk's slot unit)
+
+
+def gather_cells_ref(meta, tex_full, act: int):
+    """Plain version of B5: meta (B, C, 3) i32 [source block, slot block,
+    block count] per cell in 8-row units, tex_full (S, 128) i16 ->
+    (B, act, 128) i16, a row slice of an (act + 8)-row buffer. Rows no
+    cell copies to are 0. A block whose source or destination would fall
+    outside its buffer is skipped, as in the kernel."""
+    B, C, _ = meta.shape
+    dev = tex_full.device
+    out_rows = act + CELL_BLOCK_ROWS
+    out = torch.zeros((B, out_rows, 128), dtype=tex_full.dtype, device=dev)
+    g, s, n = meta.long().unbind(-1)  # (B, C) each
+    nmax = int(n.max()) if n.numel() else 0
+    if nmax > 0:
+        i = torch.arange(nmax, device=dev)
+        src = g[..., None] + i  # (B, C, nmax) block ids
+        dst = s[..., None] + i
+        ok = ((i < n[..., None]) & (src >= 0)
+              & (src < tex_full.shape[0] // CELL_BLOCK_ROWS)
+              & (dst >= 0) & (dst < out_rows // CELL_BLOCK_ROWS))
+        env = torch.arange(B, device=dev)[:, None, None].expand_as(src)[ok]
+        r = torch.arange(CELL_BLOCK_ROWS, device=dev)
+        src_rows = src[ok][:, None] * CELL_BLOCK_ROWS + r  # (M, 8)
+        dst_rows = dst[ok][:, None] * CELL_BLOCK_ROWS + r
+        out[env[:, None], dst_rows] = tex_full[src_rows]
+    return out[:, :act]
+
+
+def gather_cells(meta, tex_full, act: int):
+    """Kernel B5 for CUDA tensors, its plain version for CPU tensors."""
+    if meta.device.type == "cpu":
+        return gather_cells_ref(meta, tex_full, act)
+    if meta.device.type != "cuda":
+        raise ValueError(f"gather_cells: unsupported device {meta.device}")
+    B, C, three = meta.shape
+    if three != 3 or tex_full.dim() != 2 or tex_full.shape[1] != 128 or act < 0:
+        raise ValueError("gather_cells: bad shapes")
+    if (meta.dtype, tex_full.dtype) != (torch.int32, torch.int16):
+        raise ValueError("gather_cells: bad dtypes")
+    meta, tex_full = meta.contiguous(), tex_full.contiguous()
+    out_rows = act + CELL_BLOCK_ROWS
+    out = torch.zeros((B, out_rows, 128), dtype=torch.int16, device=meta.device)
+    if B * C == 0:
+        return out[:, :act]
+    check(load().tdt_gather_cells(
+        meta.data_ptr(), tex_full.data_ptr(), out.data_ptr(), B, C,
+        tex_full.shape[0], out_rows,
+        torch.cuda.current_stream(meta.device).cuda_stream,
+    ), "gather_cells")
+    gather_cells.launches += 1
+    return out[:, :act]
+
+
+gather_cells.launches = 0

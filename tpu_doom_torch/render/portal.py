@@ -1,23 +1,33 @@
 """Portal (column) renderer: the 2.5D fast path.
 
-Port of the small-level path of `tpu_doom/render/portal.py` (see its
-docstring for the method): per env, every screen column's ray is crossed
-with every seg and sprite billboard, the nearest crossings are walked
-front to back carrying the vertical clip window, and each crossing emits
-up to five window-clipped span records plus bit-packed alpha words for
-its masked family. Kernel B2 (`ops.raster.render_portal_fused`) then
-classifies and shades every pixel. Envs whose live crossings overflow
-the compaction budget, and pitched envs under `portal_pitch="triangle"`,
-render through the exact triangle path (kernel B3) instead.
+Port of `tpu_doom/render/portal.py` (see its docstring for the method):
+per env, every screen column's ray is crossed with every seg and sprite
+billboard, the nearest crossings are walked front to back carrying the
+vertical clip window, and each crossing emits up to five window-clipped
+span records plus bit-packed alpha words for its masked family. Kernel
+B2 (`ops.raster.render_portal_fused`) then classifies and shades every
+pixel. Envs that overflow a budget (live crossings, visible segs, active
+texels), and pitched envs under `portal_pitch="triangle"`, render through
+the exact triangle path (kernel B3) instead.
 
 The JAX walk selects per-crossing attributes with exact one-hot matmuls;
 here they are indexed loads. `vmap` becomes the leading env dimension:
 per-seg tables are (B, SD, C), crossings (B, K, W).
 
-Levels with more than 192 walk rows (segs + sprites), or a compact texel
-table above `portal_global_segs_max`, need the big-level walk (visible-seg
-cull, select / gather / scatter kernels B4-B6), which is not ported yet:
-they raise NotImplementedError (ROADMAP A.8).
+Big levels (more than 192 walk rows, segs + sprites, at the shipped
+defaults) take the big-level walk:
+* the visible-seg cull (`portal_visible_segs`, on any level where
+  0 < SV < SD): a conservative per-row test keeps at most SV rows per env
+  before the crossing math; envs with more visible rows overflow;
+* the attribute select through kernel B4 (`ops.raster.select_rows`)
+  when crossing compaction is off;
+* the active-set texel path when the compact texel table exceeds
+  `portal_global_segs_max`: per-seg live counts (kernel B6
+  `scatter_live` with the select, a scatter-add otherwise) mark the
+  texture cells each env sees, the cells get slots of a
+  `portal_active_segs`-row per-env table, kernel B5 (`gather_cells`)
+  fills it from the aligned table `tex_full`, and B2 reads it in its
+  per-env mode.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ import torch
 from tpu_doom.geom.portal import PortalTable
 
 from .._numerics import div, f32, to_i32
-from ..ops.raster import render_portal_fused
+from ..ops.raster import gather_cells, render_portal_fused, scatter_live, select_rows
 from ..sim.lights import light_table_u8
 from .camera import tan_f32
 from .raster import ANIM_FPS, anim_atlas_uv, render_frames, sky_x_texel, sky_y_texel
@@ -48,14 +58,18 @@ NCH = 16
 KIND_NONE, KIND_FLAT, KIND_WALL, KIND_SKY, KIND_DECOR = 0.0, 1.0, 2.0, 3.0, 4.0
 RECORDS_PER_CROSSING = 5
 
-# Per-seg attribute table columns (the JAX table without the active-set
-# cell-id columns). PIECE0 + 15 * pi + j is piece pi's column j.
+# Per-seg attribute table columns, the JAX table's 74
+# (portal.py:694-720). PIECE0 + 16 * pi + j is piece pi's column j.
 (C_HB, C_FC, C_FF, C_FCS, C_FFS, C_BCS, C_BFS, C_CEILROW, C_FLOORROW,
  C_BCROW, C_BFROW, C_LFLAT) = range(12)
-C_CA, C_FA, C_SOLID, C_SPRITE, C_CCB, C_FCB = 12, 16, 20, 21, 22, 23
-PIECE0, PIECE_C = 24, 15
+C_CA, C_FA, C_SOLID, C_SPRITE, C_CCB, C_FCB, C_CCID, C_FCID = (
+    12, 16, 20, 21, 22, 23, 24, 25)
+PIECE0, PIECE_C = 26, 16
 (P_EXISTS, P_MASKED, P_LOW, P_HIGH, P_A, P_B, P_T1, P_T2, P_LIGHT, P_AB,
- P_EXMASK, P_CB) = 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 14
+ P_EXMASK, P_CB, P_CID) = 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15
+# The clip-window prefix's columns: has_back, the four row heights, solid.
+PREFIX_COLS = [C_HB, C_CEILROW, C_FLOORROW, C_BCROW, C_BFROW, C_SOLID]
+SLOT_ROWS = 8  # active-table slots are allocated in 8-row blocks
 
 
 def compact_crossings(cfg, sd: int) -> int:
@@ -65,6 +79,28 @@ def compact_crossings(cfg, sd: int) -> int:
     if kc < 0:
         kc = 8 if sd <= SMALL_LEVEL_ROWS else 0
     return kc
+
+
+def visible_segs(cfg, sd: int) -> int:
+    """Visible-seg budget SV for a level with sd walk rows (portal.py:
+    118-136): explicit portal_visible_segs wins (0 = off); -1 = AUTO: off
+    on small levels, else 0.7 * sd rounded up to a multiple of 64, at
+    least 256. Never below portal_crossings."""
+    sv = int(cfg.portal_visible_segs)
+    if sv < 0:
+        if sd <= SMALL_LEVEL_ROWS:
+            return 0
+        sv = max(256, -(-(sd * 7) // 10 // 64) * 64)
+    return max(sv, int(cfg.portal_crossings)) if sv else 0
+
+
+def active_segs(pscene, cfg) -> int:
+    """Rows of each env's active texel table: portal_active_segs when the
+    level's compact table exceeds portal_global_segs_max (the active-set
+    path), else 0 (B2 reads the global table)."""
+    if pscene["tex_i8"].shape[0] > int(cfg.portal_global_segs_max):
+        return int(cfg.portal_active_segs)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -101,12 +137,89 @@ def _frame_coords(ax, ay, tsx, row_h, atlas_w, frame):
     return au, av
 
 
+def _pack_layout(t: PortalTable, raws, flats_w, walls_w, align: bool) -> dict:
+    """One compact texel-table layout (portal.py:235-344): every texture
+    cell a record can sample, each animation frame contiguous with a +1
+    guard row/col. align=True starts every cell on a 1024-texel (8-row)
+    boundary, the active-set gather's block unit; align=False packs dense.
+    Returns the flat table (texel 0..255, 256 = transparent), per source
+    the frame-0 base and cell id (-1 for a degenerate cell), each cell's
+    (base, length), and whether a non-masked reference reaches a hole."""
+    S = t.p1.shape[0]
+    D = t.sprite_center.shape[0]
+    cells: dict = {}  # key -> (cell id, base)
+    cell_blocks: list = []  # (base, length) per cell id
+    cell_has_hole: list = []
+    chunks: list = []
+    size = 0
+    nonmasked_holes = False
+
+    def cell(plane, a6, atlas_w, masked_ref=False):
+        nonlocal size, nonmasked_holes
+        ax, ay, tsx, tsy, row_h, nf = (float(v) for v in a6)
+        nf = max(int(nf), 1)
+        itsx, itsy = int(tsx), int(tsy)
+        if itsx <= 0 or itsy <= 0:
+            return 0.0, -1
+        key = (plane, ax, ay, tsx, tsy, row_h, nf)
+        if key not in cells:
+            pad = (-size) % 1024 if align else 0
+            if pad:
+                chunks.append(np.zeros((pad,), np.int32))
+                size += pad
+            cells[key] = (len(cell_blocks), size)
+            blen = nf * (itsx + 1) * (itsy + 1)
+            cell_blocks.append((size, blen))
+            raw = raws[plane]
+            ph, pw = raw.shape
+            has_hole = False
+            for f in range(nf):
+                ax_f, ay_f = _frame_coords(ax, ay, tsx, row_h, atlas_w, f)
+                ys = (int(ay_f) + np.arange(itsy + 1)) % ph
+                xs = (int(ax_f) + np.arange(itsx + 1)) % pw
+                block = raw[np.ix_(ys, xs)]
+                has_hole = has_hole or bool((block >= 256).any())
+                chunks.append(block.reshape(-1))
+            size += blen
+            cell_has_hole.append(has_hole)
+        cid, base = cells[key]
+        if not masked_ref and cell_has_hole[cid]:
+            nonmasked_holes = True
+        return float(base), cid
+
+    fl = [cell(0, np.asarray(t.floor_atlas)[s], flats_w) for s in range(S)]
+    ce = [cell(0, np.asarray(t.ceil_atlas)[s], flats_w) for s in range(S)]
+    ptrans = np.asarray(t.piece_transparent)
+    pc = [cell(1, np.asarray(t.piece_atlas)[s, pi], walls_w,
+               masked_ref=bool(ptrans[s, pi]))
+          for s in range(S) for pi in range(3)]
+    sp = [cell(2, np.asarray(t.sprite_atlas)[d], walls_w, masked_ref=True)
+          for d in range(D)]
+    flat_tab = (np.concatenate(chunks) if chunks
+                else np.zeros((1,), np.int32)).astype(np.int32)
+    flat_tab = np.pad(flat_tab, (0, (-flat_tab.size) % 128))
+
+    def split(pairs, shape):
+        cb = np.array([b for b, _ in pairs], np.float32).reshape(shape)
+        cid = np.array([c for _, c in pairs], np.int32).reshape(shape)
+        return cb, cid
+
+    out = dict(flat_tab=flat_tab, cell_blocks=cell_blocks,
+               nonmasked_holes=nonmasked_holes)
+    for name, pairs, shape in (("floor", fl, (S,)), ("ceil", ce, (S,)),
+                               ("piece", pc, (S, 3)), ("sprite", sp, (D,))):
+        out[name + "_cb"], out[name + "_cid"] = split(pairs, shape)
+    return out
+
+
 def _pack_compact_cells(t: PortalTable, arrays):
-    """Dense compact per-cell texel table (portal.py:198-404, the global
-    layout only): every texture cell a record can sample, each animation
-    frame contiguous with a +1 guard row/col. Returns (tex_i8 (S1, 128)
-    s8 texel - 128, hole_bytes (Sh, 128) s8 or None when no non-masked
-    cell has a hole, cmap_i8 (64, 128) s8, per-source base offsets)."""
+    """The compact per-cell texel tables (portal.py:198-404). Returns
+    tex_i8 (S1, 128) s8 (texel - 128, dense layout), hole_bytes (Sh, 128)
+    s8 or None when no non-masked cell has a hole, cmap_i8 (64, 128) s8,
+    tex_full (S_al + 8, 128) int16 (the aligned layout for the active
+    set: texel 0..255, 256 = hole, +8 guard rows for the 8-row block
+    copies), and a dict of per-source bases (dense, and `_al` aligned),
+    cell ids and per-cell segment ranges."""
     flats = np.asarray(arrays.flats_atlas)
     walls_i = np.asarray(arrays.walls_atlas_index)
     walls_a = np.asarray(arrays.walls_atlas_alpha)
@@ -124,59 +237,16 @@ def _pack_compact_cells(t: PortalTable, arrays):
     raws = [plane_raw(p) for p in range(3)]
     flats_w = float(max(flats.shape[1], 1))
     walls_w = float(max(walls_i.shape[1], 1)) if walls_i.size else 1.0
-    S = t.p1.shape[0]
-    D = t.sprite_center.shape[0]
+    dense = _pack_layout(t, raws, flats_w, walls_w, align=False)
+    al = _pack_layout(t, raws, flats_w, walls_w, align=True)
+    # Cell ids are insertion-ordered and alignment only moves bases.
+    for name in ("floor_cid", "ceil_cid", "piece_cid", "sprite_cid"):
+        assert np.array_equal(dense[name], al[name]), name
 
-    cells: dict = {}
-    cell_has_hole: dict = {}
-    chunks: list = []
-    size = 0
-    nonmasked_holes = False
-
-    def cell_base(plane, a6, atlas_w, masked_ref=False):
-        nonlocal size, nonmasked_holes
-        ax, ay, tsx, tsy, row_h, nf = (float(v) for v in a6)
-        nf = max(int(nf), 1)
-        itsx, itsy = int(tsx), int(tsy)
-        if itsx <= 0 or itsy <= 0:
-            return 0.0
-        key = (plane, ax, ay, tsx, tsy, row_h, nf)
-        if key not in cells:
-            cells[key] = size
-            raw = raws[plane]
-            ph, pw = raw.shape
-            has_hole = False
-            for f in range(nf):
-                ax_f, ay_f = _frame_coords(ax, ay, tsx, row_h, atlas_w, f)
-                ys = (int(ay_f) + np.arange(itsy + 1)) % ph
-                xs = (int(ax_f) + np.arange(itsx + 1)) % pw
-                block = raw[np.ix_(ys, xs)]
-                has_hole = has_hole or bool((block >= 256).any())
-                chunks.append(block.reshape(-1))
-            size += nf * (itsx + 1) * (itsy + 1)
-            cell_has_hole[key] = has_hole
-        if not masked_ref and cell_has_hole[key]:
-            nonmasked_holes = True
-        return float(cells[key])
-
-    floor_cb = np.array([cell_base(0, np.asarray(t.floor_atlas)[s], flats_w)
-                         for s in range(S)], np.float32)
-    ceil_cb = np.array([cell_base(0, np.asarray(t.ceil_atlas)[s], flats_w)
-                        for s in range(S)], np.float32)
-    ptrans = np.asarray(t.piece_transparent)
-    piece_cb = np.array([
-        [cell_base(1, np.asarray(t.piece_atlas)[s, pi], walls_w,
-                   masked_ref=bool(ptrans[s, pi])) for pi in range(3)]
-        for s in range(S)], np.float32).reshape(S, 3)
-    sprite_cb = np.array([cell_base(2, np.asarray(t.sprite_atlas)[d], walls_w,
-                                    masked_ref=True) for d in range(D)], np.float32)
-    flat_tab = (np.concatenate(chunks) if chunks
-                else np.zeros((1,), np.int32)).astype(np.int32)
-    flat_tab = np.pad(flat_tab, (0, (-flat_tab.size) % 128))
-
+    flat_tab = dense["flat_tab"]
     tex_i8 = ((flat_tab & 255) - 128).astype(np.int8).reshape(-1, 128)
     hole_bytes = None
-    if nonmasked_holes:
+    if dense["nonmasked_holes"]:
         hole_bits = (flat_tab >= 256).astype(np.uint8)
         hbits = np.pad(hole_bits, (0, (-hole_bits.size) % 8)).reshape(-1, 8)
         hb = (hbits * (1 << np.arange(8))).sum(axis=1)
@@ -184,9 +254,22 @@ def _pack_compact_cells(t: PortalTable, arrays):
         hole_bytes = (hb - 128).astype(np.int8).reshape(-1, 128)
     cmaps = np.asarray(arrays.colormaps)[:32].astype(np.int32)
     cmap_i8 = (cmaps - 128).astype(np.int8).reshape(-1, 128)
-    return tex_i8, hole_bytes, cmap_i8, dict(
-        floor_cbase=floor_cb, ceil_cbase=ceil_cb, piece_cbase=piece_cb,
-        sprite_cbase=sprite_cb)
+    tex_full = np.pad(al["flat_tab"].astype(np.int16).reshape(-1, 128),
+                      ((0, SLOT_ROWS), (0, 0)))
+
+    blocks = al["cell_blocks"]
+    C = max(len(blocks), 1)
+    cell_gseg0 = np.zeros((C,), np.int32)
+    cell_nsegs = np.zeros((C,), np.int32)
+    for cid, (base, blen) in enumerate(blocks):
+        cell_gseg0[cid] = base >> 7
+        cell_nsegs[cid] = ((base + blen - 1) >> 7) - (base >> 7) + 1
+    bases = dict(cell_gseg0=cell_gseg0, cell_nsegs=cell_nsegs)
+    for name in ("floor", "ceil", "piece", "sprite"):
+        bases[name + "_cbase"] = dense[name + "_cb"]
+        bases[name + "_cbase_al"] = al[name + "_cb"]
+        bases[name + "_cid"] = dense[name + "_cid"]
+    return tex_i8, hole_bytes, cmap_i8, tex_full, bases
 
 
 def portal_scene_from_table(table: PortalTable, arrays, device) -> dict:
@@ -244,16 +327,38 @@ def portal_scene_from_table(table: PortalTable, arrays, device) -> dict:
     }
     words, n_words, hc, wc = _pack_alpha_words(arrays.combo_atlas, arrays.combo_dims)
     out["alpha_words"] = words
-    tex_i8, hole_bytes, cmap_i8, bases = _pack_compact_cells(t, arrays)
+    tex_i8, hole_bytes, cmap_i8, tex_full, bases = _pack_compact_cells(t, arrays)
     out["tex_i8"] = tex_i8
     out["cmap_i8"] = cmap_i8
     if hole_bytes is not None:
         out["hole_bytes"] = hole_bytes
-    out["floor_cbase"] = cat(bases["floor_cbase"], zs)
-    out["ceil_cbase"] = cat(bases["ceil_cbase"], zs)
-    spr_pc = np.zeros((D, 3), np.float32)
-    spr_pc[:, 1] = bases["sprite_cbase"]
-    out["piece_cbase"] = np.concatenate([bases["piece_cbase"], spr_pc], axis=0)
+    # Per-source frame-0 bases: dense (tex_i8) and aligned (tex_full).
+    for sfx in ("", "_al"):
+        out["floor_cbase" + sfx] = cat(bases["floor_cbase" + sfx], zs)
+        out["ceil_cbase" + sfx] = cat(bases["ceil_cbase" + sfx], zs)
+        spr_pc = np.zeros((D, 3), np.float32)
+        spr_pc[:, 1] = bases["sprite_cbase" + sfx]
+        out["piece_cbase" + sfx] = np.concatenate(
+            [bases["piece_cbase" + sfx], spr_pc], axis=0)
+    # Active-set tables: per-source cell ids as f32 table columns (-1 for
+    # none), each cell's segment run, the (S+D, C) row -> cell union
+    # matrix, and the aligned texel table.
+    neg = np.full((D,), -1.0, np.float32)
+    out["floor_cid"] = cat(bases["floor_cid"].astype(np.float32), neg)
+    out["ceil_cid"] = cat(bases["ceil_cid"].astype(np.float32), neg)
+    spr_cid3 = np.full((D, 3), -1.0, np.float32)
+    spr_cid3[:, 1] = bases["sprite_cid"]
+    out["piece_cid"] = np.concatenate(
+        [bases["piece_cid"].astype(np.float32), spr_cid3], axis=0)
+    out["cell_gseg0"] = bases["cell_gseg0"].astype(np.float32)
+    out["cell_nsegs"] = bases["cell_nsegs"].astype(np.float32)
+    cell_m = np.zeros((S + D, out["cell_gseg0"].shape[0]), np.float32)
+    rows = np.arange(S + D)
+    for cid in (out["floor_cid"], out["ceil_cid"], *out["piece_cid"].T):
+        ok = cid >= 0
+        cell_m[rows[ok], cid[ok].astype(np.int64)] = 1.0
+    out["cell_m"] = cell_m
+    out["tex_full"] = tex_full
     sky = np.asarray(arrays.sky_index).astype(np.int32)
     out["sky_tex"] = np.asarray(arrays.colormaps)[0].astype(np.int32)[sky]
     pscene = {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
@@ -287,9 +392,68 @@ def _anim_frame(num_frames, time):
     return torch.floor(torch.remainder(div(time, ANIM_FPS), torch.clamp_min(nf, 1.0)))
 
 
-def walk(pt, scene, cfg, width, height, n_cross, state):
+def _visible_rows(p1, p2, o, fwd, right, p00, pcfg):
+    """Conservative per-row visibility (portal.py:743-777) -> (B, SD)
+    bool: the camera strictly on the row's front side, the row not
+    wholly before near or beyond far in forward depth, and not wholly
+    outside either edge of the frustum wedge. A culled row cannot yield
+    a valid crossing."""
+    ox, oz = o[:, None, 0], o[:, None, 1]
+    e = p2 - p1
+    po = p1 - o[:, None, :]
+    q1 = (p1[..., 0] - ox) * fwd[:, None, 0] + (p1[..., 1] - oz) * fwd[:, None, 1]
+    q2 = (p2[..., 0] - ox) * fwd[:, None, 0] + (p2[..., 1] - oz) * fwd[:, None, 1]
+    front = po[..., 0] * e[..., 1] - po[..., 1] * e[..., 0] > 0.0
+    xvmax = f32(1.0 / p00)
+    dl = fwd + right * (-xvmax)
+    dr = fwd + right * xvmax
+
+    def side(dd, p):
+        return dd[:, None, 0] * (p[..., 1] - oz) - dd[:, None, 1] * (p[..., 0] - ox)
+
+    cl1, cl2 = side(dl, p1), side(dl, p2)
+    cr1, cr2 = side(dr, p1), side(dr, p2)
+    return (front & (torch.maximum(q1, q2) > pcfg.near)
+            & (torch.minimum(q1, q2) < pcfg.far)
+            & ~((cl1 < 0.0) & (cl2 < 0.0)) & ~((cr1 > 0.0) & (cr2 > 0.0)))
+
+
+def _gather_rows(x, rows):
+    """x (B, S, C)[b, rows[b, j]] -> (B, J, C); `+ 0.0` as the JAX
+    one-hot select turns -0.0 into +0.0."""
+    return torch.gather(x, 1, rows[:, :, None].expand(-1, -1, x.shape[2])) + 0.0
+
+
+def _active_set(pt, seg_live_f, act: int):
+    """Active-set allocation (portal.py:1036-1079) from per-row live
+    counts (B, SD) -> (gather_meta (B, C, 3) i32 in 8-row blocks
+    [source, slot, count], slot_start (B, C) f32 rows, overflow (B,)).
+
+    A cell is visible when a live row samples it; visible cells get
+    consecutive slots of whole 8-row blocks (the f32 cumsum is exact:
+    multiples of 8 below 2**24). An env needing more than `act` rows
+    overflows; its meta is still clamped so every block lands below row
+    `act`, because B5 runs on every env."""
+    cell_vis = (seg_live_f > 0.5).to(torch.float32) @ pt["cell_m"] > 0.5  # (B, C)
+    nseg_act = torch.where(cell_vis, pt["cell_nsegs"], 0.0)
+    nblk8 = torch.where(cell_vis, torch.ceil(nseg_act / 8.0), 0.0)
+    nseg_slot = nblk8 * 8.0
+    cum = torch.cumsum(nseg_slot, dim=1)
+    slot_start = cum - nseg_slot  # exclusive prefix
+    overflow = cum[:, -1] > float(act)
+    max_blk = float(act // SLOT_ROWS)
+    nblk_safe = torch.clamp_min(torch.minimum(nblk8, max_blk - slot_start / 8.0), 0.0)
+    slot_safe = torch.clamp_max(slot_start / 8.0, max_blk)
+    gseg0 = (pt["cell_gseg0"] / 8.0).expand_as(slot_safe)
+    meta = torch.stack([gseg0, slot_safe, nblk_safe], dim=-1).to(torch.int32)
+    return meta, slot_start, overflow
+
+
+def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
     """Crossings + column walk for every env -> (records (B, R, 16, W),
-    alpha words (B, K, n_words, W) i32, aux dict)."""
+    alpha words (B, K, n_words, W) i32, aux dict). active_segs > 0 runs
+    the active-set allocation: aux["gather_meta"] then drives kernel B5,
+    and every record's texel base points into the env's active table."""
     pcfg = cfg.player
     H, W = height, width
     p00, p11 = _projection(cfg, W, H)
@@ -298,10 +462,6 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
     B = pos.shape[0]
     dev = pos.device
     SD = pt["has_back"].shape[0]
-    if SD > SMALL_LEVEL_ROWS:
-        raise NotImplementedError(
-            f"level has {SD} walk rows (segs + sprites) > {SMALL_LEVEL_ROWS}: "
-            "the big-level walk is not ported yet (ROADMAP A.8)")
 
     cy_, sy_ = torch.cos(yaw), torch.sin(yaw)
     sp_, cp_, shear_ndc = _shear_terms(pitch, p11)
@@ -312,11 +472,13 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
     right = torch.stack([cy_, -sy_], dim=1)
 
     i = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
-    ndc_x = div(2.0 * i, W) - 1.0
-    xv = div(ndc_x, p00)
+    # Compiled JAX divides by a constant as a multiply by its f32
+    # reciprocal; the rays and light levels follow it (ROADMAP C).
+    ndc_x = 2.0 * i * f32(1.0 / W) - 1.0
+    xv = ndc_x * f32(1.0 / p00)
     d = fwd[:, None, :] + right[:, None, :] * xv[None, :, None]  # (B, W, 2)
 
-    lights_f = div(light_table_u8(scene, time).to(torch.float32), 255.0)  # (B, L)
+    lights_f = light_table_u8(scene, time).to(torch.float32) * f32(1.0 / 255.0)  # (B, L)
     ls = lights_f.shape[1]
 
     def row_of(h, tt, cyw_, shear_):
@@ -361,9 +523,12 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
         fr = _anim_frame(a6[..., 5], t_)
         return cb0 + fr * (a6[..., 2] + 1.0) * (a6[..., 3] + 1.0)
 
-    ceil_cb_t = cbase_t(pt["ceil_cbase"], pt["ceil_atlas"], tcol)
-    floor_cb_t = cbase_t(pt["floor_cbase"], pt["floor_atlas"], tcol)
-    piece_cb_t = cbase_t(pt["piece_cbase"], pt["piece_atlas"], tcol[:, :, None])
+    # The active set samples the aligned tex_full layout, the global path
+    # the dense tex_i8 one.
+    sfx = "_al" if active_segs else ""
+    ceil_cb_t = cbase_t(pt["ceil_cbase" + sfx], pt["ceil_atlas"], tcol)
+    floor_cb_t = cbase_t(pt["floor_cbase" + sfx], pt["floor_atlas"], tcol)
+    piece_cb_t = cbase_t(pt["piece_cbase" + sfx], pt["piece_atlas"], tcol[:, :, None])
 
     def bexp(x):
         return x.to(torch.float32).expand(B, SD)
@@ -379,7 +544,7 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
         ca_b[..., 0], ca_b[..., 1], bexp(ca_t[..., 0]), bexp(ca_t[..., 1]),
         fa_b[..., 0], fa_b[..., 1], bexp(fa_t[..., 0]), bexp(fa_t[..., 1]),
         bexp(pt["is_solid"]), bexp(pt["is_sprite"]),
-        ceil_cb_t, floor_cb_t,
+        ceil_cb_t, floor_cb_t, bexp(pt["ceil_cid"]), bexp(pt["floor_cid"]),
     ]
     for pi in range(3):
         cols += [
@@ -389,7 +554,7 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
             wa_b[:, :, pi, 0], wa_b[:, :, pi, 1],
             bexp(wa_t[:, pi, 0]), bexp(wa_t[:, pi, 1]),
             bexp(pt["piece_exists"][:, pi] & pt["piece_masked"][:, pi]),
-            piece_cb_t[..., pi],
+            piece_cb_t[..., pi], bexp(pt["piece_cid"][:, pi]),
         ]
     table = torch.stack([c.to(torch.float32) for c in cols], dim=2)  # (B, SD, C)
 
@@ -399,6 +564,20 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
     p1 = torch.cat([pt["p1"].expand(B, -1, -1), spc - sp_off], dim=1)  # (B, SD, 2)
     p2 = torch.cat([pt["p2"].expand(B, -1, -1), spc + sp_off], dim=1)
     o = torch.stack([cx, cz], dim=1)
+
+    # --- visible-seg cull: at most SV rows per env, visible ones first in
+    # row order (a stable sort); envs with more visible rows overflow.
+    SD_full = SD
+    SV = visible_segs(cfg, SD_full)
+    overflow = torch.zeros((B,), dtype=torch.bool, device=dev)
+    ordv = None
+    if 0 < SV < SD_full:
+        vis = _visible_rows(p1, p2, o, fwd, right, p00, pcfg)
+        overflow = vis.sum(dim=1) > SV
+        ordv = torch.sort((~vis).to(torch.int32), dim=1, stable=True).indices[:, :SV]
+        p1, p2 = _gather_rows(p1, ordv), _gather_rows(p2, ordv)
+        table = _gather_rows(table, ordv)
+        SD = SV
 
     # --- crossings (B, W, SD) ---------------------------------------------
     e = p2 - p1
@@ -415,11 +594,11 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
     td = torch.where(valid, t, BIG_T)
     # Stable sort: equal depths keep seg-id order.
     td_s, order = torch.sort(td, dim=2, stable=True)
-    u_s = torch.gather(u, 2, order)
     K = min(n_cross, SD)
-    idx = order[:, :, :K].transpose(1, 2)  # (B, K, W)
+    order = order[:, :, :K]
+    idx = order.transpose(1, 2)  # (B, K, W)
     t = td_s[:, :, :K].transpose(1, 2)
-    uf = u_s[:, :, :K].transpose(1, 2)
+    uf = torch.gather(u, 2, order).transpose(1, 2)
 
     valid = t < BIG_T / 10.0
     safe_t = torch.where(valid, t, 1.0)
@@ -432,13 +611,30 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
         flat = ix.reshape(Bk, Kk * Wk, 1).expand(-1, -1, sub.shape[2])
         return torch.gather(sub, 1, flat).reshape(Bk, Kk, Wk, sub.shape[2])
 
-    sv = select([C_HB, C_CEILROW, C_FLOORROW, C_BCROW, C_BFROW, C_SOLID], idx)
-    hb_p = sv[..., 0] > 0.5
-    solid_p = sv[..., 5] > 0.5
-    r_fc_p = row_of(sv[..., 1], safe_t, cyw3, shear3)
-    r_ff_p = row_of(sv[..., 2], safe_t, cyw3, shear3)
-    row_bc = row_of(sv[..., 3], safe_t, cyw3, shear3)
-    row_bf = row_of(sv[..., 4], safe_t, cyw3, shear3)
+    # Attribute select. On big levels without crossing compaction, kernel
+    # B4 selects all columns at every crossing in one pass, read by both
+    # the clip-window prefix and the records; otherwise gathers select
+    # the prefix columns now and all columns after compaction.
+    K_c = compact_crossings(cfg, SD_full)
+    use_sel = (cfg.portal_select_rows != "off" and K_c == 0
+               and SD_full > SMALL_LEVEL_ROWS)
+    if use_sel:
+        idx_flat = idx.reshape(B, K * W).to(torch.int32)
+        vals_cn = select_rows(idx_flat, table)  # (B, C, K * W)
+
+        def col(c):
+            return vals_cn[:, c].reshape(B, K, W)
+
+        pre = [col(c) for c in PREFIX_COLS]
+    else:
+        sv = select(PREFIX_COLS, idx)
+        pre = [sv[..., j] for j in range(len(PREFIX_COLS))]
+    hb_p = pre[0] > 0.5
+    solid_p = pre[5] > 0.5
+    r_fc_p = row_of(pre[1], safe_t, cyw3, shear3)
+    r_ff_p = row_of(pre[2], safe_t, cyw3, shear3)
+    row_bc = row_of(pre[3], safe_t, cyw3, shear3)
+    row_bf = row_of(pre[4], safe_t, cyw3, shear3)
 
     # Clip-window prefix over crossings (cummax / cummin along K).
     vs = valid & solid_p
@@ -462,10 +658,9 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
     live = valid & ~done_before
 
     # --- crossing compaction: the first K_c crossings live in any column.
-    K_c = compact_crossings(cfg, SD)
     if 0 < K_c < n_cross:
         live_k = live.any(dim=2)  # (B, K)
-        overflow = live_k.sum(dim=1) > K_c
+        overflow = overflow | (live_k.sum(dim=1) > K_c)
         ordk = torch.sort((~live_k).to(torch.int32), dim=1, stable=True).indices[:, :K_c]
         g = ordk[:, :, None].expand(-1, -1, W)
         t = torch.gather(t, 1, g)
@@ -478,13 +673,43 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
         safe_t = torch.where(valid, t, 1.0)
         K_eff = ordk.shape[1]
     else:
-        overflow = torch.zeros((B,), dtype=torch.bool, device=dev)
         K_eff = K
 
-    vals = select(list(range(table.shape[2])), idx)  # (B, K_eff, W, C)
+    # --- active-set allocation (texel tables above portal_global_segs_max).
+    if active_segs:
+        live_f = live.to(torch.float32).reshape(B, -1)
+        if use_sel:
+            seg_live_f = scatter_live(idx_flat, live_f, SD)
+        else:
+            seg_live_f = torch.zeros((B, SD), dtype=torch.float32, device=dev)
+            seg_live_f.scatter_add_(1, idx.reshape(B, -1), live_f)
+        if ordv is not None:
+            # Compacted rows home to level rows (ordv's rows are distinct;
+            # rows past the visible count are invisible and count 0).
+            seg_live_f = torch.zeros((B, SD_full), dtype=torch.float32,
+                                     device=dev).scatter_(1, ordv, seg_live_f)
+        gather_meta, slot_start, ovf = _active_set(pt, seg_live_f, active_segs)
+        overflow = overflow | ovf
+        gseg0 = pt["cell_gseg0"]
+        n_cells = gseg0.shape[0]
 
-    def col(c):
-        return vals[..., c]
+        def remap_cb(cb, cid):
+            """Texel bases into the env's active table."""
+            ci = cid.to(torch.int64).clamp(0, n_cells - 1)
+            slot = torch.gather(slot_start, 1, ci.reshape(B, -1)).reshape(ci.shape)
+            shift = (slot - gseg0[ci]) * 128.0
+            return torch.where(cid < 0.0, 0.0, cb + shift)
+    else:
+        gather_meta = None
+
+        def remap_cb(cb, cid):
+            return cb
+
+    if not use_sel:
+        vals = select(list(range(table.shape[2])), idx)  # (B, K_eff, W, C)
+
+        def col(c):
+            return vals[..., c]
 
     hb = col(C_HB) > 0.5
     solid = col(C_SOLID) > 0.5
@@ -536,7 +761,7 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
                     torch.minimum(bot, r_fc)),
         torch.where(fcs, KIND_SKY, KIND_FLAT),
         p0=col(C_CEILROW), ab=tuple(col(C_CA + j) for j in range(4)),
-        light=light_flat, cbase=col(C_CCB), ok=live & solid)
+        light=light_flat, cbase=remap_cb(col(C_CCB), col(C_CCID)), ok=live & solid)
     # Floor span, with its sky band.
     band_f = ffs & (~hb | ~bfs)
     rec(torch.where(band_f, torch.maximum(top1, row_of(ff, safe_t, cyw3, shear3)),
@@ -544,7 +769,7 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
         torch.where(band_f, bot1, bot),
         torch.where(ffs, KIND_SKY, KIND_FLAT),
         p0=col(C_FLOORROW), ab=tuple(col(C_FA + j) for j in range(4)),
-        light=light_flat, cbase=col(C_FCB), ok=live & solid)
+        light=light_flat, cbase=remap_cb(col(C_FCB), col(C_FCID)), ok=live & solid)
     # Wall pieces lower / middle / upper (sprites ride the middle).
     for pi in range(3):
         c0 = PIECE0 + pi * PIECE_C
@@ -561,7 +786,7 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
             kind, p0=uu, ab=tuple(col(c0 + P_AB + j) for j in range(4)),
             light=col(c0 + P_LIGHT), w=t, t1=col(c0 + P_T1), t2=col(c0 + P_T2),
             low=plow, high=phigh, masked=masked.to(torch.float32),
-            cbase=col(c0 + P_CB), ok=live & pe)
+            cbase=remap_cb(col(c0 + P_CB), col(c0 + P_CID)), ok=live & pe)
 
     # Masked alpha words: one texture column per crossing and screen column.
     c0m = PIECE0 + PIECE_C
@@ -577,6 +802,8 @@ def walk(pt, scene, cfg, width, height, n_cross, state):
     records = torch.stack(recs, dim=2).reshape(B, K_eff * RECORDS_PER_CROSSING, NCH, W)
     aux = dict(cam=cam, d=d, sy=sy_, cy=cy_, sp=sp_, cp=cp_, shear=shear_ndc,
                overflow=overflow)
+    if gather_meta is not None:
+        aux["gather_meta"] = gather_meta
     return records, words, aux
 
 
@@ -611,22 +838,22 @@ def sky_image(pt, scene, cfg, width, height, sy_, cy_, sp_, cp_):
 
 def fused_inputs(pscene, scene, cfg, width, height, state):
     """Walk every env and assemble kernel B2's arguments: returns (args,
-    keyword args, overflow (B,) bool) for `render_portal_fused`."""
-    S1 = pscene["tex_i8"].shape[0]
-    cap = int(cfg.portal_global_segs_max)
-    if S1 > cap:
-        raise NotImplementedError(
-            f"compact texel table has {S1} rows > portal_global_segs_max={cap}: "
-            "the active-set path is not ported yet (ROADMAP A.8)")
+    keyword args, overflow (B,) bool) for `render_portal_fused`. On the
+    active-set path kernel B5 builds the per-env texel tables first."""
+    act = active_segs(pscene, cfg)
     records, words, aux = walk(pscene, scene, cfg, width, height,
-                               int(cfg.portal_crossings), state)
+                               int(cfg.portal_crossings), state, active_segs=act)
     dxz = aux["d"].transpose(1, 2).contiguous()  # (B, 2, W)
     sky = sky_image(pscene, scene, cfg, width, height, aux["sy"], aux["cy"],
                     aux["sp"], aux["cp"])
+    if act:
+        tex = gather_cells(aux["gather_meta"], pscene["tex_full"], act)  # (B, act, 128)
+        hole = None
+    else:
+        tex, hole = pscene["tex_i8"], pscene.get("hole_bytes")
     p11 = 1.0 / math.tan(math.radians(cfg.fov) / 2.0)
-    args = (records, words, aux["cam"], pscene["hc"], dxz, sky,
-            pscene["tex_i8"], pscene.get("hole_bytes"), pscene["cmap_i8"],
-            height, p11, scene.palette_lut.shape[0])
+    args = (records, words, aux["cam"], pscene["hc"], dxz, sky, tex, hole,
+            pscene["cmap_i8"], height, p11, scene.palette_lut.shape[0])
     return args, dict(shear=aux["shear"]), aux["overflow"]
 
 
