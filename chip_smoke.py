@@ -8,16 +8,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
   2. build: nvcc builds csrc/*.cu for sm_90a from the checkout (one nvcc
      per source, in parallel).
   3. kernels: each kernel against its plain PyTorch version on the card at
-     main-path shapes, with error ceilings, and both timed. On :test:
-     (B1: 256 envs; B2: 256 envs at 320x200; B3: 8 envs at 320x200, 3
-     layers); on :texstress: at 320x200 x 256 envs after 8 bench ticks,
-     from the port's own walk: B4 at shipped defaults, B6, B5 and B2's
-     per-env mode with portal_global_segs_max=1024 (all bitwise).
-  4. goldens: the triangle path (B3) against tests/golden/frames.npz at
-     160x100, the portal path (B2) on the 8 verify poses at 320x200
-     against tests/golden/verify_ref.npz, and the 8 :texstress: states of
-     tests/golden/verify_texstress_ref.npz at 320x200 in both configs
-     (both made by the JAX package).
+     main-path shapes, with error ceilings, and both timed, beside its
+     bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
+     whichever is larger) and, where one PyTorch call computes the same
+     function, that call's time. On :test: (B1: 256 envs; B2, then B7 and
+     B8 of the portal_jnp configuration on the same state: 256 envs at
+     320x200, with the chain B7 -> B8 against B2 printed; B3 and B9: the 8
+     verify poses at 320x200, 3 layers); on :texstress: at 320x200 x 256
+     envs after 8 bench ticks, from the port's own walk: B4 at shipped
+     defaults, B6, B5 and B2's per-env mode with
+     portal_global_segs_max=1024 (all bitwise).
+  4. goldens: the triangle path (B3) and the jnp path (B9) against
+     tests/golden/frames.npz at 160x100, the portal (B2) and portal_jnp
+     (B7, B8) paths on the 8 verify poses at 320x200 against
+     tests/golden/verify_ref.npz, and the 8 :texstress: states of
+     tests/golden/verify_texstress_ref.npz at 320x200 in both texel
+     configs and under portal_jnp (all made by the JAX package).
   5. main path: every segment runs with the launch counts set to 0 just
      before it and read just after:
      bench: DoomSim on :test: at 320x200 x 256 envs, bench actions, 8
@@ -27,6 +33,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      fallback: 4 ticks with portal_pitch="triangle" and half the envs
        pitched, so the triangle path (B3) runs inside the main path (the
        bench trajectory never overflows the crossing budget);
+     oracle, oracle_fallback: the same with raster_backend="portal_jnp"
+       (B7 and B8 every frame; 4 warm-up ticks, 3 windows of 8 ticks),
+       and its fallback through the jnp triangle path (B9);
      texstress, texstress_act: DoomSim on :texstress: at 320x200 x 256
        envs, bench actions, at shipped defaults (the big-level walk with
        B4) and with portal_global_segs_max=1024 (the active-set path: B6,
@@ -34,7 +43,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
        the share of envs that fell back to the triangle path per tick.
 The last two lines: the kernels' JSON summary (launches summed over the
 main-path segments, and per segment), then the device JSON.
-Imports no JAX: the GPU machine has none.
+Imports neither JAX nor the JAX package: the GPU machine has neither.
 """
 
 from __future__ import annotations
@@ -80,7 +89,27 @@ KERNELS = {
     "render_portal_fused_per_env": dict(
         source="tpu_doom_torch/csrc/render_portal.cu",
         replaces="tpu_doom/ops/raster_pallas.py:854"),
+    "classify_alpha": dict(
+        source="tpu_doom_torch/csrc/classify_alpha.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:479"),
+    "shade_portal": dict(
+        source="tpu_doom_torch/csrc/shade_portal.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:1394"),
+    "depth_peel": dict(
+        source="tpu_doom_torch/csrc/depth_peel.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:169"),
 }
+
+# The least time the card could take for a kernel's work: the larger of
+# its bytes (each input read once, each output written once) over the
+# H100 SXM's memory rate and its operations over the f32 rate outside the
+# tensor cores (NVIDIA's data sheet, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operation counts per unit of work, floors from the kernels' sources:
+PEEL_TEST_OPS = 20    # one coverage test: five 3-term dot products
+SWEEP_TRI_OPS = 300   # one swept-sphere vs triangle test (face, 3 vertex, 3 edge)
+SHADE_PIXEL_OPS = 60  # one pixel's shade (texel address, light row)
 
 
 class SmokeFailure(Exception):
@@ -123,6 +152,29 @@ def time_ms(fn):
     return float(np.median(times))
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, ops=0.0):
+    """{bound_ms, bound_by} for moving n_bytes and doing ops f32 operations."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def record(results, name, err, ms, plain, n_bytes, ops=0.0, library_ms=None):
+    """Store a kernel's numbers and print its bound and yardstick."""
+    results[name].update(max_abs_err=err, ms=ms, plain_ms=plain,
+                         library_ms=library_ms, **bound(n_bytes, ops))
+    r = results[name]
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"[bound] {name}: {n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> bound"
+          f" {r['bound_ms']:.4f} ms by {r['bound_by']}; kernel {ms:.4f} ms"
+          f" ({r['bound_ms'] / ms:.1%} of bound); one PyTorch call: {lib}")
+
+
 def max_abs_err(a, b):
     """Max |a - b| over entries finite in both; inf where the non-finite
     pattern differs."""
@@ -160,9 +212,8 @@ def phase_build():
 
 
 def make_sim(device="cuda", **kw):
-    from tpu_doom.utils.config import GameConfig, PlayerConfig
-
     from tpu_doom_torch.models import DoomSim
+    from tpu_doom_torch.utils.config import GameConfig, PlayerConfig
 
     base = dict(wad_file=":test:", width=W_MAIN, height=H_MAIN,
                 batch_size=B_MAIN, raster_backend="portal",
@@ -222,7 +273,9 @@ def phase_kernels(results):
     print(f"[kernel] B1 player_move rows {tuple(rows.shape)}: max_abs_err {err}"
           f" (ceiling 0); {ms:.4f} ms vs plain {plain:.4f} ms")
     require(err == 0.0, f"B1 disagrees with its plain version: {err}")
-    results["player_move"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+    sweeps = pcfg.clip_substeps + 1 + int(pcfg.enable_noclip)
+    record(results, "player_move", err, ms, plain, nbytes(rows, st8, got),
+           rows.shape[0] * sweeps * rows.shape[2] * SWEEP_TRI_OPS)
 
     # B2 on the port's own walk output, 256 envs at 320x200.
     args, kw, _ = P.fused_inputs(sim.portal_scene(), sim.scene, sim.config,
@@ -238,8 +291,13 @@ def phase_kernels(results):
           f"{mism} mismatched idx/cov px (ceiling 0), max_abs_err {err};"
           f" {ms:.4f} ms vs plain {plain:.4f} ms")
     require(mism == 0, f"B2 disagrees with its plain version on {mism} px")
-    results["render_portal_fused"].update(max_abs_err=err, ms=ms, plain_ms=plain)
-    del args, gi, gc, wi, wc
+    tables = [t for t in args[6:9] if t is not None]
+    record(results, "render_portal_fused", err, ms, plain,
+           nbytes(*args[:3], *args[4:6], *tables, gi, gc),
+           gi.numel() * SHADE_PIXEL_OPS)
+    del args, gc, wi, wc
+    phase_kernels_oracle(results, state, gi)
+    del gi
 
     # B3 on the 8 verify poses at 320x200, 3 layers.
     ref = verify_ref()
@@ -267,7 +325,93 @@ def phase_kernels(results):
           f" plain {plain:.4f} ms")
     require(cat_ok and fin_ok and rel <= B3_REL_TOL,
             "B3 disagrees with its plain version")
-    results["peel_resolve"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+    from tpu_doom_torch.ops.raster import _pad_peel_inputs
+
+    _, _, gridp, cb = _pad_peel_inputs(trows, tattrs, grid, yb, pk["tile_p"],
+                                       pk["chunk_t"])
+    pyt = gridp[1].reshape(-1, pk["tile_p"])
+    overlap = ((cb[..., 0, None] <= pyt.amax(dim=1) + 1.0)
+               & (cb[..., 1, None] >= pyt.amin(dim=1) - 1.0))  # chunks x tiles
+    tests = int(overlap.sum()) * pk["tile_p"] * pk["chunk_t"] * n_layers
+    record(results, "peel_resolve", err, ms, plain,
+           nbytes(trows, tattrs, grid, yb, got), tests * PEEL_TEST_OPS)
+
+    # B9 on the same 8 poses: the "jnp" path's unsorted 16-column rows.
+    from tpu_doom_torch.ops import depth_peel, depth_peel_ref, pack_triangle_rows
+
+    prep = R.prepare(vsim.scene, tcfg, W_MAIN, H_MAIN, verify_state(vsim, ref))
+    rows16 = pack_triangle_rows(prep["e"], prep["det"], prep["vz"], prep["vs"])
+    z, ids = depth_peel(rows16, grid, n_layers, **pk)
+    zr, idr = depth_peel_ref(rows16, grid, n_layers, **pk)
+    torch.cuda.synchronize()
+    same = torch.equal(ids, idr) and bitwise_equal(z, zr)
+    err = max_abs_err(z, zr)
+    ms = time_ms(lambda: depth_peel(rows16, grid, n_layers, **pk))
+    plain = time_ms(lambda: depth_peel_ref(rows16, grid, n_layers, **pk))
+    # For the record: B9's z against B3's channel 0 (the same winners: B3's
+    # y-sorted rows carry the draw-order ids B9 has as positions).
+    b3z = max_abs_err(z, got[:, :, 0])
+    print(f"[kernel] B9 depth_peel rows {tuple(rows16.shape)} P={grid.shape[1]}"
+          f" K={n_layers}: ids equal and z bitwise {same} (ceiling 0),"
+          f" max_abs_err {err}; z vs B3's channel 0 max_abs_err {b3z};"
+          f" {ms:.4f} ms vs plain {plain:.4f} ms")
+    require(same, "B9 disagrees with its plain version")
+    record(results, "depth_peel", err, ms, plain, nbytes(rows16, grid, z, ids),
+           rows16.shape[0] * rows16.shape[1] * grid.shape[1] * n_layers
+           * PEEL_TEST_OPS)
+
+
+def phase_kernels_oracle(results, state, b2_idx):
+    """B7 then B8 (the `portal_jnp` configuration) on the port's own
+    :test: walk at 256 envs x 320x200, from B2's state, each bitwise
+    against its plain version; the chain against B2's frame is printed for
+    the record (the same function at zero pitch)."""
+    from tpu_doom_torch.ops import (
+        classify_alpha,
+        classify_alpha_ref,
+        shade_portal,
+        shade_portal_ref,
+    )
+    from tpu_doom_torch.render import portal as P
+
+    sim = make_sim(raster_backend="portal_jnp")
+    cargs, sargs, shear, _ = P.oracle_inputs(sim.portal_scene(), sim.scene,
+                                             sim.config, W_MAIN, H_MAIN, state)
+    ch = classify_alpha(*cargs, shear=shear)
+    want = classify_alpha_ref(*cargs, shear=shear)
+    torch.cuda.synchronize()
+    same = bitwise_equal(ch, want)
+    err = max_abs_err(ch, want)
+    del want
+    ms = time_ms(lambda: classify_alpha(*cargs, shear=shear))
+    plain = time_ms(lambda: classify_alpha_ref(*cargs, shear=shear))
+    print(f"[kernel] B7 classify_alpha records {tuple(cargs[0].shape)} ->"
+          f" {tuple(ch.shape)}: bitwise equal {same} (ceiling 0), max_abs_err"
+          f" {err}; {ms:.4f} ms vs plain {plain:.4f} ms")
+    require(same, "B7 disagrees with its plain version")
+    record(results, "classify_alpha", err, ms, plain,
+           nbytes(*cargs[:3], shear, ch))
+
+    B = ch.shape[0]
+    ch = ch.reshape(B, 11, -1)
+    del cargs
+    gi, gc = shade_portal(ch, *sargs, shear=shear)
+    wi, wc = shade_portal_ref(ch, *sargs, shear=shear)
+    torch.cuda.synchronize()
+    mism = int((gi != wi).sum()) + int((gc != wc).sum())
+    err = max(max_abs_err(gi, wi), max_abs_err(gc, wc))
+    del wi, wc
+    ms = time_ms(lambda: shade_portal(ch, *sargs, shear=shear))
+    plain = time_ms(lambda: shade_portal_ref(ch, *sargs, shear=shear))
+    chain = int((gi.reshape(b2_idx.shape) != b2_idx).sum())
+    print(f"[kernel] B8 shade_portal ch {tuple(ch.shape)} table"
+          f" {tuple(sargs[4].shape)} hole {tuple(sargs[5].shape)}: {mism}"
+          f" mismatched idx/cov px (ceiling 0), max_abs_err {err}; {ms:.4f} ms"
+          f" vs plain {plain:.4f} ms; the chain B7 -> B8 differs from B2 on"
+          f" {chain} px of this zero-pitch state")
+    require(mism == 0, f"B8 disagrees with its plain version on {mism} px")
+    record(results, "shade_portal", err, ms, plain,
+           nbytes(ch, *sargs[:7], shear, gi, gc), gi.numel() * SHADE_PIXEL_OPS)
 
 
 @contextlib.contextmanager
@@ -333,7 +477,11 @@ def phase_kernels_texstress(results):
           f" -> {tuple(got.shape)}: bitwise equal {same} (ceiling 0), max_abs_err"
           f" {err}; {ms:.4f} ms vs plain {plain:.4f} ms")
     require(same, "B4 disagrees with its plain version")
-    results["select_rows"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+    C = tab.shape[2]
+    lib = time_ms(lambda: torch.gather(
+        tab.transpose(1, 2), 2, idx.long()[:, None, :].expand(-1, C, -1)))
+    record(results, "select_rows", err, ms, plain, nbytes(idx, tab, got),
+           library_ms=lib)
     del calls, idx, tab, got, want, sim
 
     sim = make_sim(wad_file=TEX_WAD, portal_global_segs_max=TEX_CAP)
@@ -354,7 +502,12 @@ def phase_kernels_texstress(results):
           f" {n_rows}): bitwise equal {same} (ceiling 0), max_abs_err {err},"
           f" {int(want.sum())} live crossings; {ms:.4f} ms vs plain {plain:.4f} ms")
     require(same, "B6 disagrees with its plain version")
-    results["scatter_live"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+    ok = (sidx >= 0) & (sidx < n_rows)
+    sl_idx, sl_live = torch.where(ok, sidx, 0).long(), torch.where(ok, live, 0.0)
+    zeros = torch.zeros((sidx.shape[0], n_rows), dtype=torch.float32, device=sidx.device)
+    lib = time_ms(lambda: torch.scatter_add(zeros, 1, sl_idx, sl_live))
+    record(results, "scatter_live", err, ms, plain, nbytes(sidx, live, got),
+           library_ms=lib)
 
     meta, tex_full, act = gc[0]
     got, want = gather_cells(meta, tex_full, act), gather_cells_ref(meta, tex_full, act)
@@ -369,7 +522,8 @@ def phase_kernels_texstress(results):
           f" {int(overflow.sum())} envs over the active budget; {ms:.4f} ms vs"
           f" plain {plain:.4f} ms")
     require(same, "B5 disagrees with its plain version")
-    results["gather_cells"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+    copied = int(meta[..., 2].sum()) * 8 * 128 * tex_full.element_size()
+    record(results, "gather_cells", err, ms, plain, nbytes(meta, got) + copied)
     del sl, gc, sidx, live, meta, tex_full, got, want
 
     require(args[6].dim() == 3, "B2 is not in its per-env mode on the active set")
@@ -384,7 +538,8 @@ def phase_kernels_texstress(results):
           f" records {tuple(args[0].shape)}: {mism} mismatched idx/cov px"
           f" (ceiling 0), max_abs_err {err}; {ms:.4f} ms vs plain {plain:.4f} ms")
     require(mism == 0, f"B2 per-env disagrees with its plain version on {mism} px")
-    results["render_portal_fused_per_env"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+    record(results, "render_portal_fused_per_env", err, ms, plain,
+           nbytes(*args[:3], *args[4:7], args[8], gi, gc_), gi.numel() * SHADE_PIXEL_OPS)
 
 
 GOLDEN_SCENARIOS = {
@@ -397,9 +552,60 @@ GOLDEN_SCENARIOS = {
 
 
 def phase_goldens():
-    sim = make_sim(batch_size=1, raster_backend="auto")
     with np.load("tests/golden/frames.npz") as z:
         golden = {k: z[k] for k in z.files}
+    # frames.npz was made by the JAX package's "jnp" configuration
+    # (tests/golden/regen.py:43): the port's B3 path and its "jnp" path.
+    for backend, label in (("auto", "triangle path"), ("jnp", "jnp path (B9)")):
+        phase_golden_frames(golden, make_sim(batch_size=1, raster_backend=backend),
+                            label)
+
+    ref = verify_ref()
+    for backend in ("portal", "portal_jnp"):
+        vsim = make_sim(batch_size=8, portal_crossings=12, raster_backend=backend)
+        idx, cov = vsim.render(verify_state(vsim, ref))
+        idx, cov = idx.cpu().numpy(), cov.cpu().numpy()
+        for i in range(idx.shape[0]):
+            n = int((idx[i] != ref["idx"][i]).sum())
+            nc = int((cov[i] != ref["cov"][i]).sum())
+            print(f"[golden] {backend} verify pose {i} 320x200: {n} px, {nc} cov"
+                  f" differ from JAX portal_jnp (ceiling {PX_CEILING})")
+            require(n <= PX_CEILING and nc <= PX_CEILING,
+                    f"{backend} verify pose {i} failed")
+        del vsim
+
+    # :texstress: (the big-level walk), 8 states, both texel-table paths
+    # and the portal_jnp configuration (B7, B8 on the dense global table).
+    # The ceiling is summed over the 8 envs (bench.py:144-145). `idx` was
+    # rendered stage by stage; `idx_fused` by the JAX package's one
+    # compiled program, which differs from it on this level (see
+    # tests/golden/regen_torch_ref.py) and is printed for the record.
+    from tpu_doom_torch.sim.state import SimState
+
+    with np.load("tests/golden/verify_texstress_ref.npz") as z:
+        tref = {k: z[k] for k in z.files}
+    jax_own = int((tref["idx_fused"] != tref["idx"]).sum())
+    for name, extra in (("shipped defaults", {}),
+                        (f"portal_global_segs_max={TEX_CAP}",
+                         dict(portal_global_segs_max=TEX_CAP)),
+                        ("portal_jnp", dict(raster_backend="portal_jnp"))):
+        tsim = make_sim(wad_file=TEX_WAD, batch_size=8, **extra)
+        st = SimState(*(torch.as_tensor(tref[k], device=tsim.device)
+                        for k in SimState._fields))
+        idx, cov = (x.cpu().numpy() for x in tsim.render(st))
+        n = (idx != tref["idx"]).sum(axis=(1, 2))
+        nc = (cov != tref["cov"]).sum(axis=(1, 2))
+        nf = int((idx != tref["idx_fused"]).sum())
+        print(f"[golden] :texstress: {name}, 8 states 320x200: {int(n.sum())} px"
+              f" (per env {n.tolist()}), {int(nc.sum())} cov differ from JAX"
+              f" portal_jnp, summed (ceiling {PX_CEILING}); {nf} px from the JAX"
+              f" one-program render, which differs from portal_jnp by {jax_own}")
+        require(n.sum() <= PX_CEILING and nc.sum() <= PX_CEILING,
+                f":texstress: reference frames failed ({name})")
+
+
+def phase_golden_frames(golden, sim, label):
+    """The four frames.npz scenarios at 160x100 through `sim`."""
     dev = sim.device
     for name, (pos, yaw, pitch, t, door) in GOLDEN_SCENARIOS.items():
         s = sim.reset(1)
@@ -418,53 +624,16 @@ def phase_goldens():
         idx, cov = sim.render(s, 160, 100)
         n = int((idx[0].cpu().numpy() != golden[f"{name}_idx"]).sum())
         cov_eq = bool((cov[0].cpu().numpy() == golden[f"{name}_cov"]).all())
-        print(f"[golden] triangle path {name} 160x100: {n} px differ, "
+        print(f"[golden] {label} {name} 160x100: {n} px differ, "
               f"coverage equal {cov_eq} (ceiling {PX_CEILING})")
-        require(cov_eq and n <= PX_CEILING, f"golden {name} failed")
-
-    ref = verify_ref()
-    vsim = make_sim(batch_size=8, portal_crossings=12)
-    idx, cov = vsim.render(verify_state(vsim, ref))
-    idx, cov = idx.cpu().numpy(), cov.cpu().numpy()
-    for i in range(idx.shape[0]):
-        n = int((idx[i] != ref["idx"][i]).sum())
-        nc = int((cov[i] != ref["cov"][i]).sum())
-        print(f"[golden] portal path verify pose {i} 320x200: {n} px, {nc} cov"
-              f" differ from JAX portal_jnp (ceiling {PX_CEILING})")
-        require(n <= PX_CEILING and nc <= PX_CEILING, f"verify pose {i} failed")
-
-    # :texstress: (the big-level walk), 8 states, both texel-table paths.
-    # The ceiling is summed over the 8 envs (bench.py:144-145). `idx` was
-    # rendered stage by stage; `idx_fused` by the JAX package's one
-    # compiled program, which differs from it on this level (see
-    # tests/golden/regen_torch_ref.py) and is printed for the record.
-    from tpu_doom_torch.sim.state import SimState
-
-    with np.load("tests/golden/verify_texstress_ref.npz") as z:
-        tref = {k: z[k] for k in z.files}
-    jax_own = int((tref["idx_fused"] != tref["idx"]).sum())
-    for name, extra in (("shipped defaults", {}),
-                        (f"portal_global_segs_max={TEX_CAP}",
-                         dict(portal_global_segs_max=TEX_CAP))):
-        tsim = make_sim(wad_file=TEX_WAD, batch_size=8, **extra)
-        st = SimState(*(torch.as_tensor(tref[k], device=tsim.device)
-                        for k in SimState._fields))
-        idx, cov = (x.cpu().numpy() for x in tsim.render(st))
-        n = (idx != tref["idx"]).sum(axis=(1, 2))
-        nc = (cov != tref["cov"]).sum(axis=(1, 2))
-        nf = int((idx != tref["idx_fused"]).sum())
-        print(f"[golden] :texstress: {name}, 8 states 320x200: {int(n.sum())} px"
-              f" (per env {n.tolist()}), {int(nc.sum())} cov differ from JAX"
-              f" portal_jnp, summed (ceiling {PX_CEILING}); {nf} px from the JAX"
-              f" one-program render, which differs from portal_jnp by {jax_own}")
-        require(n.sum() <= PX_CEILING and nc.sum() <= PX_CEILING,
-                f":texstress: reference frames failed ({name})")
+        require(cov_eq and n <= PX_CEILING, f"golden {name} failed ({label})")
 
 
-def fallback_sim():
+def fallback_sim(**kw):
     """The same DoomSim with portal_pitch="triangle" and half the envs
-    pitched 0.3: every pitched env takes the triangle fallback (B3)."""
-    sim = make_sim(portal_pitch="triangle")
+    pitched 0.3: every pitched env takes the triangle fallback (B3, or B9
+    under portal_jnp)."""
+    sim = make_sim(portal_pitch="triangle", **kw)
     state = sim.reset()
     pitch = state.pitch.clone()
     pitch[: B_MAIN // 2] = 0.3
@@ -530,6 +699,28 @@ def timed_segment(tag, label, sim, state, acts, windows, ticks, needed):
     return counts
 
 
+def fallback_segment(tag, sim, state, acts, needed):
+    """FALLBACK_TICKS ticks of the half-pitched fallback sim with the
+    launch counts set to 0 before and read after; the triangle path's
+    kernel `needed` must have run."""
+    from tpu_doom_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, _, cov = run_ticks(sim, state, acts, FALLBACK_TICKS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    coverage = float(cov) / (FALLBACK_TICKS * B_MAIN * W_MAIN * H_MAIN)
+    print(f"[{tag}] raster_backend={sim.config.raster_backend}"
+          f" portal_pitch=triangle, {B_MAIN // 2} envs pitched 0.3,"
+          f" {FALLBACK_TICKS} ticks in {dt:.4f} s ({dt * 1e3 / FALLBACK_TICKS:.4f}"
+          f" ms/tick wall, no warm-up tick): launches {counts}, coverage {coverage:.4f}")
+    require(counts[needed] > 0, f"{tag}: {needed} did not run in the fallback")
+    require(coverage > 0.5, f"{tag}: coverage {coverage} <= 0.5")
+    return counts
+
+
 def phase_main(results):
     from tpu_doom_torch.ops import launch_counts, reset_launch_counts
 
@@ -546,17 +737,26 @@ def phase_main(results):
         "main", f":test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs", sim, state, acts,
         WINDOWS, TIMED_TICKS, ("player_move", "render_portal_fused"))}
 
-    reset_launch_counts()
-    fstate, _, fcov = run_ticks(fsim, fstate, facts, FALLBACK_TICKS)
-    torch.cuda.synchronize()
-    fallback = segments["fallback"] = launch_counts()
-    fcoverage = float(fcov) / (FALLBACK_TICKS * B_MAIN * W_MAIN * H_MAIN)
-    print(f"[fallback] portal_pitch=triangle, {B_MAIN // 2} envs pitched 0.3,"
-          f" {FALLBACK_TICKS} ticks: launches {fallback}, coverage"
-          f" {fcoverage:.4f}")
-    require(fallback["peel_resolve"] > 0, "B3 did not run in the fallback")
-    require(fcoverage > 0.5, f"fallback coverage {fcoverage} <= 0.5")
+    segments["fallback"] = fallback_segment("fallback", fsim, fstate, facts,
+                                            "peel_resolve")
     del sim, state, fsim, fstate
+
+    # The portal_jnp configuration (B7 then B8 every frame) and its
+    # fallback (the "jnp" triangle path, B9).
+    sim = make_sim(raster_backend="portal_jnp")
+    state = sim.reset()
+    acts = bench_actions(sim, B_MAIN)
+    state, _, _ = run_ticks(sim, state, acts, TEX_WARMUP)
+    torch.cuda.synchronize()
+    segments["oracle"] = timed_segment(
+        "oracle", f":test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs raster_backend=portal_jnp",
+        sim, state, acts, TEX_WINDOWS, TEX_TICKS,
+        ("player_move", "classify_alpha", "shade_portal"))
+    del sim, state
+    fsim, fstate, facts = fallback_sim(raster_backend="portal_jnp")
+    segments["oracle_fallback"] = fallback_segment(
+        "oracle_fallback", fsim, fstate, facts, "depth_peel")
+    del fsim, fstate
 
     for seg, extra, needed in (
             ("texstress", {}, ("player_move", "render_portal_fused", "select_rows")),
@@ -592,7 +792,8 @@ def main():
     phase_goldens()
     segments = phase_main(results)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", *(f"{seg}_launches" for seg in segments))
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             *(f"{seg}_launches" for seg in segments))
     print(json.dumps({"kernels": [{k: results[n][k] for k in order}
                                   for n in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,6 @@ Tolerances:
   see TEX_CEILING); on :test: within 16 px (the verify legs' ceiling).
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +32,7 @@ from tpu_doom.models import DoomSim as JaxSim
 from tpu_doom.utils.config import GameConfig
 from tpu_doom_torch.models import DoomSim as TorchSim
 from tpu_doom_torch.sim.state import state_from_numpy
+from tpu_doom_torch.utils.config import GameConfig as TorchConfig
 
 TO_NP = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
 BIG = ":texstress:10x16"
@@ -110,8 +109,11 @@ def jax_big_walk():
         ps, sim.scene, cfg, W, H, sy, cy, sp, cp)))(aux["sy"], aux["cy"], aux["sp"],
                                                      aux["cp"])
     tabs = gather_cells_pallas(aux["gather_meta"], ps["tex_full"], ACT, interpret=True)
-    return dict(cfg=cfg, sim=sim, state=s, ps=ps, rec=rec, words=words, aux=aux,
-                sky=sky, tabs=tabs, W=W, H=H)
+    tcfg = TorchConfig(wad_file=BIG, width=W, height=H, batch_size=2,
+                       raster_backend="portal", render_env_chunk=0,
+                       portal_global_segs_max=1024)
+    return dict(cfg=cfg, tcfg=tcfg, sim=sim, state=s, ps=ps, rec=rec, words=words,
+                aux=aux, sky=sky, tabs=tabs, W=W, H=H)
 
 
 def test_gather_cells_ref_matches_pallas_interpret(jax_big_walk):
@@ -120,7 +122,7 @@ def test_gather_cells_ref_matches_pallas_interpret(jax_big_walk):
     from tpu_doom_torch.ops.raster import gather_cells_ref
 
     j = jax_big_walk
-    simt = TorchSim(dataclasses.replace(j["cfg"], raster_backend="portal"), "cpu")
+    simt = TorchSim(j["tcfg"], "cpu")
     tex_full = simt.portal_scene()["tex_full"]
     np.testing.assert_array_equal(
         tex_full.numpy(), np.asarray(j["ps"]["tex_full"].astype(jnp.float32)))
@@ -138,7 +140,7 @@ def test_big_walk_matches_jax_walk(jax_big_walk):
     from tpu_doom_torch.render.portal import walk
 
     j = jax_big_walk
-    simt = TorchSim(dataclasses.replace(j["cfg"], raster_backend="portal"), "cpu")
+    simt = TorchSim(j["tcfg"], "cpu")
     st = state_from_numpy(TO_NP(j["state"]), "cpu")
     rt, wt, auxt = walk(simt.portal_scene(), simt.scene, simt.config, j["W"], j["H"],
                         24, st, active_segs=ACT)
@@ -204,7 +206,7 @@ def test_texstress_frames_match_jax(cap):
     kw = dict(wad_file=BIG, width=64, height=40, batch_size=2,
               portal_global_segs_max=cap)
     simj = JaxSim(GameConfig(raster_backend="portal_jnp", render_env_chunk=0, **kw))
-    simt = TorchSim(GameConfig(raster_backend="portal", **kw), "cpu")
+    simt = TorchSim(TorchConfig(raster_backend="portal", **kw), "cpu")
     s = simj.reset(2)._replace(yaw=jnp.asarray(list(TEX_CEILING), jnp.float32))
     ij, cj = (np.asarray(x) for x in simj.render(s))
     it, ct = simt.render(state_from_numpy(TO_NP(s), "cpu"))
@@ -221,9 +223,9 @@ def test_active_overflow_clamps_meta_and_falls_back():
 
     act = 64
     kw = dict(wad_file=BIG, width=48, height=32, batch_size=2, portal_crossings=12)
-    simp = TorchSim(GameConfig(raster_backend="portal", portal_global_segs_max=1024,
+    simp = TorchSim(TorchConfig(raster_backend="portal", portal_global_segs_max=1024,
                                portal_active_segs=act, **kw), "cpu")
-    simt = TorchSim(GameConfig(raster_backend="auto", **kw), "cpu")
+    simt = TorchSim(TorchConfig(raster_backend="auto", **kw), "cpu")
     s = simp.reset()._replace(yaw=torch.tensor([0.0, 2.2]))
     _, _, aux = walk(simp.portal_scene(), simp.scene, simp.config, 48, 32, 12, s,
                      active_segs=act)
@@ -249,7 +251,7 @@ def test_visible_segs_budget_overflows_like_jax():
     kw = dict(wad_file=":test:", width=W, height=H, batch_size=4, portal_visible_segs=24)
     cfgj = GameConfig(raster_backend="portal_jnp", render_env_chunk=0, **kw)
     simj = JaxSim(cfgj)
-    simt = TorchSim(GameConfig(raster_backend="portal", **kw), "cpu")
+    simt = TorchSim(TorchConfig(raster_backend="portal", **kw), "cpu")
     s = simj.reset(4)._replace(yaw=jnp.asarray([0.0, 1.6, 3.2, 4.8], jnp.float32))
     ps = simj._get_portal_scene()
     _, _, aux = jax.jit(jax.vmap(lambda p, y, pi, o, t: _walk_env(

@@ -1,6 +1,6 @@
 """Kernels on the card against their plain PyTorch versions (marked
-`cuda`; they skip without a CUDA card). This file imports no JAX, so it
-also runs on the GPU machine, which has none:
+`cuda`; they skip without a CUDA card). This file imports neither JAX nor
+the JAX package, so it also runs on the GPU machine, which has neither:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -11,8 +11,8 @@ the full-size checks.
 import pytest
 import torch
 
-from tpu_doom.utils.config import GameConfig
 from tpu_doom_torch.models import DoomSim as TorchSim
+from tpu_doom_torch.utils.config import GameConfig
 
 
 @pytest.fixture
@@ -114,3 +114,43 @@ def test_big_walk_kernels_match_plain_versions_on_card(cuda_device):
     gi, gc = render_portal_fused(*args, **kw)
     wi, wc = render_portal_fused_ref(*args, **kw)
     assert torch.equal(gi, wi) and torch.equal(gc, wc)
+
+
+@pytest.mark.cuda
+def test_reference_config_kernels_match_plain_versions_on_card(cuda_device):
+    """On the card: B7 and B8 bit-equal to their plain versions on the
+    `portal_jnp` walk of a pitched and an unpitched env, and B9 equal to
+    its plain version (ids and z) on the `jnp` path's rows."""
+    from tpu_doom_torch.ops import (
+        classify_alpha,
+        classify_alpha_ref,
+        depth_peel,
+        depth_peel_ref,
+        pack_triangle_rows,
+        shade_portal,
+        shade_portal_ref,
+    )
+    from tpu_doom_torch.render import portal as P
+    from tpu_doom_torch.render import raster as R
+
+    sim = TorchSim(GameConfig(wad_file=":test:", width=64, height=40, batch_size=2,
+                              raster_backend="portal_jnp"), cuda_device)
+    s = sim.reset()._replace(
+        pos=torch.tensor([[-2.2, 0.2, -8.8], [-3.5, 1.0, -9.0]], device=cuda_device),
+        yaw=torch.tensor([0.9, 0.0], device=cuda_device),
+        pitch=torch.tensor([0.3, 1e-8], device=cuda_device))
+    cargs, sargs, shear, _ = P.oracle_inputs(sim.portal_scene(), sim.scene,
+                                             sim.config, 64, 40, s)
+    ch = classify_alpha(*cargs, shear=shear)
+    assert torch.equal(ch, classify_alpha_ref(*cargs, shear=shear))
+    ch = ch.reshape(2, 11, -1)
+    gi, gc = shade_portal(ch, *sargs, shear=shear)
+    wi, wc = shade_portal_ref(ch, *sargs, shear=shear)
+    assert torch.equal(gi, wi) and torch.equal(gc, wc) and float(gc.mean()) > 0.9
+
+    prep = R.prepare(sim.scene, sim.config, 64, 40, s)
+    rows = pack_triangle_rows(prep["e"], prep["det"], prep["vz"], prep["vs"])
+    grid = R.pixel_grid(64, 40, cuda_device)
+    z, ids = depth_peel(rows, grid, 3, tile_p=256, chunk_t=64)
+    zr, idr = depth_peel_ref(rows, grid, 3)
+    assert torch.equal(ids, idr) and torch.equal(z.view(torch.int32), zr.view(torch.int32))

@@ -32,6 +32,7 @@ from tpu_doom.models import DoomSim as JaxSim
 from tpu_doom.utils.config import GameConfig
 from tpu_doom_torch.models import DoomSim as TorchSim
 from tpu_doom_torch.sim.state import state_from_numpy
+from tpu_doom_torch.utils.config import GameConfig as TorchConfig
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 TO_NP = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
@@ -95,7 +96,7 @@ def test_walk_and_tables_match_jax():
 
     W, H = 64, 40
     sim, ps, rec, words, aux, sky = _walk_inputs(W, H)
-    simt = TorchSim(GameConfig(wad_file=":test:", width=W, height=H,
+    simt = TorchSim(TorchConfig(wad_file=":test:", width=W, height=H,
                                raster_backend="portal"), "cpu")
     pt = simt.portal_scene()
     for k in ("tex_i8", "hole_bytes", "cmap_i8", "sky_tex"):
@@ -203,7 +204,7 @@ def test_doomsim_portal_frames_match_jax():
     B = len(POSES)
     kw = dict(wad_file=":test:", width=W_P, height=H_P, batch_size=B)
     simj = JaxSim(GameConfig(raster_backend="portal_jnp", render_env_chunk=0, **kw))
-    simt = TorchSim(GameConfig(raster_backend="portal", **kw), "cpu")
+    simt = TorchSim(TorchConfig(raster_backend="portal", **kw), "cpu")
     s = simj.reset(B)
     oo = np.zeros(s.object_offset.shape, np.float32)
     for i, p in enumerate(POSES):
@@ -228,7 +229,7 @@ def test_verify_ref_poses_within_ceiling():
     chip_smoke.py holds the card to (<= 16 px per pose)."""
     with np.load(os.path.join(GOLDEN, "verify_ref.npz")) as z:
         ref = {k: z[k] for k in z.files}
-    sim = TorchSim(GameConfig(wad_file=":test:", width=320, height=200,
+    sim = TorchSim(TorchConfig(wad_file=":test:", width=320, height=200,
                               batch_size=8, raster_backend="portal",
                               portal_crossings=12), "cpu")
     s = sim.reset(8)._replace(**{k: torch.as_tensor(ref[k]) for k in (
@@ -247,7 +248,7 @@ GOLDEN_CEILING = {"start": 0, "big_room": 4, "door_half_open": 0, "grate": 0}
 def test_triangle_path_hits_goldens(name):
     """(e) The triangle path (B3's plain version here) vs frames.npz,
     scenarios of tests/golden/regen.py restated as literals."""
-    sim = TorchSim(GameConfig(wad_file=":test:", raster_backend="auto"), "cpu")
+    sim = TorchSim(TorchConfig(wad_file=":test:", raster_backend="auto"), "cpu")
     s = sim.reset(1)
     if name == "big_room":
         s = s._replace(pos=torch.tensor([[-2.2, 0.2, -8.8]]), yaw=torch.tensor([0.9]),
@@ -269,8 +270,8 @@ def test_triangle_fallback_renders_pitched_envs():
     """portal_pitch='triangle': pitched envs take the triangle path and
     equal a triangle-only render; unpitched ones stay on the portal path."""
     kw = dict(wad_file=":test:", width=64, height=40, batch_size=2)
-    simp = TorchSim(GameConfig(raster_backend="portal", portal_pitch="triangle", **kw), "cpu")
-    simt = TorchSim(GameConfig(raster_backend="auto", **kw), "cpu")
+    simp = TorchSim(TorchConfig(raster_backend="portal", portal_pitch="triangle", **kw), "cpu")
+    simt = TorchSim(TorchConfig(raster_backend="auto", **kw), "cpu")
     s = simp.reset(2)._replace(
         pos=torch.tensor([[-2.2, 0.2, -8.8]] * 2), yaw=torch.tensor([0.9, 0.9]),
         pitch=torch.tensor([0.4, 1e-8]))
@@ -296,7 +297,7 @@ def test_doom2_portal_frames_match_jax():
     branch) through both packages' portal paths: within 16 px per env."""
     kw = dict(wad_file=":doom2:", width=64, height=40, batch_size=2)
     simj = JaxSim(GameConfig(raster_backend="portal_jnp", render_env_chunk=0, **kw))
-    simt = TorchSim(GameConfig(raster_backend="portal", **kw), "cpu")
+    simt = TorchSim(TorchConfig(raster_backend="portal", **kw), "cpu")
     s = simj.reset(2)
     s = s._replace(yaw=jnp.asarray([0.0, 2.0], jnp.float32))
     ij, cj = (np.asarray(x) for x in simj.render(s))
@@ -312,7 +313,7 @@ def test_stress_level_renders_through_big_walk():
     there), within 16 px of JAX portal_jnp per env."""
     kw = dict(wad_file=":stress:", width=32, height=20, batch_size=2)
     simj = JaxSim(GameConfig(raster_backend="portal_jnp", render_env_chunk=0, **kw))
-    simt = TorchSim(GameConfig(raster_backend="portal", **kw), "cpu")
+    simt = TorchSim(TorchConfig(raster_backend="portal", **kw), "cpu")
     assert simt.portal_scene()["has_back"].shape[0] > 192
     s = simj.reset(2)._replace(yaw=jnp.asarray([0.0, 2.2], jnp.float32))
     ij, cj = (np.asarray(x) for x in simj.render(s))

@@ -28,6 +28,8 @@ from tpu_doom_torch.sim.state import (
     state_from_numpy,
     state_to_numpy,
 )
+from tpu_doom_torch.utils.config import GameConfig as TorchConfig
+from tpu_doom_torch.utils.config import PlayerConfig as TorchPlayer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TO_NP = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
@@ -36,10 +38,11 @@ TO_NP = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
 @pytest.fixture(scope="module")
 def sims():
     """JAX and torch sims with test_sim.py's player config."""
-    pcfg = PlayerConfig(clip_substeps=1, enable_noclip=False)
-    kw = dict(wad_file=":test:", width=64, height=40, batch_size=1, player=pcfg)
-    simj = JaxSim(GameConfig(raster_backend="portal_jnp", **kw))
-    simt = TorchSim(GameConfig(raster_backend="portal", **kw), "cpu")
+    pk = dict(clip_substeps=1, enable_noclip=False)
+    kw = dict(wad_file=":test:", width=64, height=40, batch_size=1)
+    simj = JaxSim(GameConfig(raster_backend="portal_jnp", player=PlayerConfig(**pk), **kw))
+    simt = TorchSim(TorchConfig(raster_backend="portal", player=TorchPlayer(**pk), **kw),
+                    "cpu")
     jstep = jax.jit(simj.step)
     return simj, simt, jstep
 
@@ -59,7 +62,7 @@ def test_player_move_ref_matches_jax_move_core():
     from tpu_doom_torch.sim.collision import broadphase_rows
 
     simj = JaxSim(GameConfig(wad_file=":test:", raster_backend="portal_jnp"))
-    simt = TorchSim(GameConfig(wad_file=":test:", raster_backend="portal"), "cpu")
+    simt = TorchSim(TorchConfig(wad_file=":test:", raster_backend="portal"), "cpu")
     rng = np.random.default_rng(0)
     B = 16
     s = simj.reset(B)
@@ -96,7 +99,7 @@ def test_step_one_tick_matches_jax():
     """(b) One tick from identical states with random actions."""
     kw = dict(wad_file=":test:", width=64, height=40, batch_size=8)
     simj = JaxSim(GameConfig(raster_backend="portal_jnp", **kw))
-    simt = TorchSim(GameConfig(raster_backend="portal", **kw), "cpu")
+    simt = TorchSim(TorchConfig(raster_backend="portal", **kw), "cpu")
     rng = np.random.default_rng(1)
     s = simj.reset(8)
     s = s._replace(
@@ -167,10 +170,11 @@ TRAJECTORY_DRIFT_CEILING = 1e-3
 def test_bench_trajectory_drift_ceiling():
     """(b) 60 ticks of bench actions (walk forward, per-env yaw rate)."""
     B = 4
-    kw = dict(wad_file=":test:", width=64, height=40, batch_size=B,
-              player=PlayerConfig(clip_substeps=4))
-    simj = JaxSim(GameConfig(raster_backend="portal_jnp", **kw))
-    simt = TorchSim(GameConfig(raster_backend="portal", **kw), "cpu")
+    kw = dict(wad_file=":test:", width=64, height=40, batch_size=B)
+    simj = JaxSim(GameConfig(raster_backend="portal_jnp",
+                             player=PlayerConfig(clip_substeps=4), **kw))
+    simt = TorchSim(TorchConfig(raster_backend="portal",
+                                player=TorchPlayer(clip_substeps=4), **kw), "cpu")
     rng = np.random.default_rng(0)
     look = np.stack([rng.uniform(-0.05, 0.05, B).astype(np.float32),
                      np.zeros(B, np.float32)], axis=1)
@@ -215,13 +219,14 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_tpu_backend_names_raise():
     """The port picks kernel or plain version by device; TPU-only
-    backend names are refused."""
-    for backend in ("portal_jnp", "portal_interpret", "pallas", "jnp"):
+    backend names are refused (the reference configurations "portal_jnp"
+    and "jnp" are the port's own, tests/test_torch_oracle.py)."""
+    for backend in ("portal_interpret", "pallas", "pallas_interpret"):
         with pytest.raises(ValueError):
-            TorchSim(GameConfig(wad_file=":test:", raster_backend=backend), "cpu")
+            TorchSim(TorchConfig(wad_file=":test:", raster_backend=backend), "cpu")
     with pytest.raises(ValueError):
-        TorchSim(GameConfig(wad_file=":test:", raster_backend="portal",
-                            player=PlayerConfig(collision_backend="pallas")), "cpu")
+        TorchSim(TorchConfig(wad_file=":test:", raster_backend="portal",
+                             player=TorchPlayer(collision_backend="pallas")), "cpu")
 
 
 PTXAS_REPORT = """\

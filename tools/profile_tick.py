@@ -3,12 +3,14 @@
 
     python3 tools/profile_tick.py                # the main cell, on CUDA
     python3 tools/profile_tick.py --wad :texstress: [--global-segs-max 1024]
+    python3 tools/profile_tick.py --backend portal_jnp
     python3 tools/profile_tick.py --device cpu --batch 2 --width 64 --height 40
 
 Runs `DoomSim` of `tpu_doom_torch` on `--wad` (default `:test:`, 320x200
 x 256 envs, bench actions, clip_substeps=4; `--global-segs-max` lowers
-portal_global_segs_max, so that a big level takes the active-set path)
-and prints:
+portal_global_segs_max, so that a big level takes the active-set path;
+`--backend portal_jnp` renders through B7 and B8 instead of B2) and
+prints:
   * host-clock ms per tick of step + render, step alone, render alone and
     the walk alone (`render.portal.walk`), each the mean of --ticks calls
     that end in a synchronize;
@@ -18,7 +20,7 @@ and prints:
     hand-written kernel and of the walk's sort, and the host ms per tick
     spent blocked in the per-frame fallback flag read (`aten::item`);
   * the profiler's table of the ops with the most device time.
-Imports no JAX.
+Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from tpu_doom_torch.render import portal as P  # noqa: E402
 
 KERNEL_NAMES = ("player_move_kernel", "render_portal_kernel",
                 "peel_resolve_kernel", "select_rows_kernel",
-                "scatter_live", "gather_cells_kernel", "radixSort")
+                "scatter_live", "gather_cells_kernel", "classify_alpha_kernel",
+                "shade_portal_kernel", "depth_peel_kernel", "radixSort")
 
 
 def sync(device):
@@ -60,6 +63,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--wad", default=":test:")
     ap.add_argument("--global-segs-max", type=int, default=None)
+    ap.add_argument("--backend", default="portal", choices=("portal", "portal_jnp"))
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=200)
@@ -75,7 +79,8 @@ def main(argv=None):
     if args.global_segs_max is not None:
         extra["portal_global_segs_max"] = args.global_segs_max
     sim = make_sim(dev, wad_file=args.wad, batch_size=args.batch,
-                   width=args.width, height=args.height, **extra)
+                   width=args.width, height=args.height,
+                   raster_backend=args.backend, **extra)
     state = sim.reset()
     acts = bench_actions(sim, args.batch)
     with torch.no_grad():
@@ -97,7 +102,7 @@ def main(argv=None):
         t_walk = ms_per_call(
             lambda: P.walk(pscene, sim.scene, cfg, args.width, args.height,
                            int(cfg.portal_crossings), state, act), dev, n)
-        print(f"[split] {args.wad} active_segs {act}: ms/tick: step+render"
+        print(f"[split] {args.wad} {args.backend} active_segs {act}: ms/tick: step+render"
               f" {t_tick:.4f}, step {t_step:.4f}, render {t_render:.4f}, of"
               f" which walk {t_walk:.4f} (host clock, mean of {n})")
 

@@ -9,9 +9,13 @@ Layering mirrors `tpu_doom`:
   models/   the DoomSim API
   csrc/     CUDA C++ sources, built with nvcc by `_build.load()`
 
-The host-side layers `tpu_doom.wad`, `tpu_doom.geom` and
-`tpu_doom.utils.config` import no JAX and are shared, not copied. No
-module of this package imports `jax`.
+  wad/      WAD loading and the synthetic fixtures (host, numpy)
+  geom/     the level compiler and portal tables (host, numpy)
+  utils/    GameConfig / PlayerConfig
+
+`wad/`, `geom/` and `utils/config.py` are this package's own copies of
+the JAX package's host layers: no module here imports `jax` or anything
+of `tpu_doom`. Only `native/` (the C asset loaders) is shared.
 """
 
 __version__ = "0.1.0"

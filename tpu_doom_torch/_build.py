@@ -57,6 +57,17 @@ SIGNATURES = {
     "tdt_scatter_live": [_P, _P, _P, _I, _I, _I, _P],
     # meta, tex, out, B, C, tex_rows, out_rows, stream
     "tdt_gather_cells": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # records, words, cam_y, shear, out, B, R, W, H, n_words, hc, p11,
+    # stream
+    "tdt_classify_alpha": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                           _P],
+    # ch, dxz, ndc_y, sky, cam, shear, tex, hole, cmap, idx, cov, B, P, S1,
+    # p11, n_rows, stream
+    "tdt_shade_portal": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _F, _I, _P],
+    # rows, grid, out_z, out_id, B, T_pad, P, P_pad, n_layers, tile_p,
+    # chunk_t, stream
+    "tdt_depth_peel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

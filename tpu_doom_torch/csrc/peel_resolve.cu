@@ -14,12 +14,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "peel.cuh"
+
 namespace {
+
+using peel::kMaxChunk;
 
 constexpr int kRowCols = 24;
 constexpr int kAttrCols = 16;
 constexpr int kOutCh = 16;
-constexpr int kMaxChunk = 128;
 constexpr float kBigId = 1073741824.0f;  // 2**30
 
 __global__ void peel_resolve_kernel(const float* __restrict__ rows,
@@ -76,14 +79,8 @@ __global__ void peel_resolve_kernel(const float* __restrict__ rows,
       __syncthreads();
       for (int t = 0; t < chunk_t; ++t) {
         const float* s = sh_rows + t * kRowCols;
-        float lam0 = s[0] * px + s[1] * py + s[2];
-        float lam1 = s[3] * px + s[4] * py + s[5];
-        float lam2 = s[6] * px + s[7] * py + s[8];
-        float z = s[9] * px + s[10] * py + s[11];
-        float slam = s[12] * px + s[13] * py + s[14];
-        bool cover = (s[15] > 0.0f) && (lam0 >= 0.0f) && (lam1 >= 0.0f) &&
-                     (lam2 >= 0.0f) && (slam > 0.0f) && (z >= -1.0f) &&
-                     (z <= 1.0f);
+        float z;
+        const bool cover = peel::cover(s, px, py, &z);
         float id = s[22];
         bool after = (z > prev_z) || ((z == prev_z) && (id > prev_id));
         if (cover && after &&

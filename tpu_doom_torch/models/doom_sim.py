@@ -1,7 +1,8 @@
 """DoomSim: the user-facing simulator on PyTorch.
 
 Port of `tpu_doom/models/doom_sim.py` (reset / null_actions / step /
-render / step_render / render_rgb) with an explicit `device`. The portal
+render / step_render / render_rgb) on a `device`, the card unless the
+caller asks for the CPU. The portal
 backend renders every level, big ones (more than 192 walk rows, such as
 `:stress:` and `:texstress:`) through the big-level walk and, when the
 level's texel table exceeds `portal_global_segs_max`, the active-set
@@ -18,18 +19,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpu_doom.geom.builder import compile_level
-from tpu_doom.utils.config import GameConfig
-from tpu_doom.wad.archive import Archive
-from tpu_doom.wad.meta import WadMetadata
-from tpu_doom.wad.tex import TextureDirectory
-
+from ..geom.builder import compile_level
 from ..render import frames_to_rgb, render_dispatch
 from ..render.raster import check_raster_backend
 from ..sim.scene import scene_from_arrays
 from ..sim.state import Actions, SimState, initial_state, null_actions
 from ..sim.step import check_collision_config
 from ..sim.step import step as sim_step
+from ..utils.config import GameConfig
+from ..wad.archive import Archive
+from ..wad.meta import WadMetadata
+from ..wad.tex import TextureDirectory
 
 log = logging.getLogger(__name__)
 
@@ -37,7 +37,7 @@ log = logging.getLogger(__name__)
 def open_wad(wad_file: str) -> Archive:
     """The synthetic fixtures (':test:', ':doom2:', ':stress:[cells]',
     ':texstress:[cells]x[textures]') or a WAD file on disk."""
-    from tpu_doom.wad import wadgen
+    from ..wad import wadgen
 
     if wad_file == ":test:":
         return Archive(wadgen.build_test_wad(), source=":test:")
@@ -60,10 +60,10 @@ def open_wad(wad_file: str) -> Archive:
 
 class DoomSim:
     """One loaded level, batched lockstep simulation + rendering on
-    `device` (CUDA tensors run the kernels, CPU tensors their plain
-    versions)."""
+    `device`: the card by default, where the kernels run; `device="cpu"`
+    runs their plain versions."""
 
-    def __init__(self, config: GameConfig, device):
+    def __init__(self, config: GameConfig, device="cuda"):
         check_raster_backend(config.raster_backend)
         check_collision_config(config.player)
         self.config = config
@@ -99,7 +99,7 @@ class DoomSim:
 
     def portal_scene(self):
         """Portal tables for the current level (None on the triangle path)."""
-        if self.config.raster_backend != "portal":
+        if not self.config.raster_backend.startswith("portal"):
             return None
         if self._portal_scene is None:
             from ..render.portal import portal_scene_from_table

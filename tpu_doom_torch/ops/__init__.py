@@ -8,8 +8,13 @@ nvcc build runs at the first launch (`tpu_doom_torch._build.load`).
 
 from .collision import player_move, player_move_ref
 from .raster import (
+    classify_alpha,
+    classify_alpha_ref,
+    depth_peel,
+    depth_peel_ref,
     gather_cells,
     gather_cells_ref,
+    pack_triangle_rows,
     peel_resolve,
     peel_resolve_ref,
     render_portal_fused,
@@ -18,6 +23,8 @@ from .raster import (
     scatter_live_ref,
     select_rows,
     select_rows_ref,
+    shade_portal,
+    shade_portal_ref,
 )
 
 # name -> wrapper, for resetting and reading the launch counts.
@@ -28,6 +35,9 @@ KERNELS = {
     "select_rows": select_rows,
     "gather_cells": gather_cells,
     "scatter_live": scatter_live,
+    "classify_alpha": classify_alpha,
+    "shade_portal": shade_portal,
+    "depth_peel": depth_peel,
 }
 
 
@@ -61,4 +71,11 @@ __all__ = [
     "gather_cells_ref",
     "scatter_live",
     "scatter_live_ref",
+    "classify_alpha",
+    "classify_alpha_ref",
+    "shade_portal",
+    "shade_portal_ref",
+    "pack_triangle_rows",
+    "depth_peel",
+    "depth_peel_ref",
 ]

@@ -1,5 +1,4 @@
-"""Kernels B2 (fused portal classify + shade) and B3 (depth peel +
-resolve), each with its plain PyTorch version.
+"""The renderer's kernels, B2-B9, each with its plain PyTorch version.
 
 B2 replaces `tpu_doom/ops/raster_pallas.py:render_portal_fused_pallas`
 (kernel `_render_fused_kernel`). Per pixel it takes the first span record
@@ -41,6 +40,18 @@ copy of each env's visible texture cells into its active texel table
 (one block per cell and env, 16-byte copies, csrc/gather_cells.cu).
 B2 reads those per-env tables in its per-env mode.
 
+B7, B8 and B9 serve the JAX package's reference configurations, which
+made the goldens the port is held to:
+B7 `classify_alpha` replaces `raster_pallas.py:classify_alpha_pallas`
+(B2's stage 1 alone, csrc/classify_alpha.cu) and B8 `shade_portal`
+replaces `shade_portal_pallas` (B2's stage 2 alone over flattened
+pixels, csrc/shade_portal.cu): `raster_backend="portal_jnp"` runs B7 then
+B8 on every frame. B2, B7 and B8 share their device code
+(csrc/portal_shade.cuh) and, here, `_classify` and `_shade_address`.
+B9 `depth_peel` replaces `depth_peel_pallas` (B3's peel without the
+resolve, ids by row position, csrc/depth_peel.cu): the peel of
+`raster_backend="jnp"`, which is also `portal_jnp`'s fallback.
+
 Every wrapper takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors, counting launches in `wrapper.launches`.
 """
@@ -67,35 +78,20 @@ NCH = 16
 # ---------------------------------------------------------------------------
 
 
-def render_portal_fused_ref(records, words, cam, hc: int, dxz, sky_img,
-                            tex, hole_bytes, cmap_i8, height: int,
-                            p11: float, n_rows: int, shear=None):
-    """Plain version of B2.
-
-    records (B, R, 16, W) f32; words (B, K, n_words, W) i32; cam (B, 3);
-    dxz (B, 2, W); sky_img (B, H, W) f32; tex either the global compact
-    table (S1, 128) s8 (texel - 128), with hole_bytes (Sh, 128) s8 or
-    None for a holeless level, or the per-env active tables (B, S1, 128)
-    i16 (texel 0..255, 256 = hole; hole_bytes unused); cmap_i8 (S2, 128)
-    s8; shear (B,) or None. Returns (palette index, covered), each
-    (B, H, W) f32."""
+def _classify(records, words, cam_y, hc: int, ndc_y, y, p11: float,
+              done_on_kind: bool):
+    """First-match span classify (B2's stage 1 and B7): records (B, R,
+    16, W), words (B, K, n_words, W), cam_y (B, 1, 1), ndc_y (B, H, 1),
+    y (1, H, 1) -> (B, 11, H, W), the covering record's channels [2:13)
+    (kind p0 tsx tsy cbase light w t1 t2 low high), zero where none
+    covers. Masked-family records cover only where their texel alpha bit
+    is set. A pixel is done after its first covering record, or with
+    `done_on_kind` (B7's rule) after the first one of non-zero kind."""
     B, R, _, W = records.shape
-    H = height
-    dev = records.device
-    p11 = f32(p11)
+    H = y.shape[1]
     n_words = words.shape[2]
-    per_env = tex.dim() == 3
-    S1 = tex.shape[1] if per_env else tex.shape[0]
-    if shear is None:
-        shear = torch.zeros((B,), dtype=torch.float32, device=dev)
-    y = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[None, :, None]
-    cam_x = cam[:, 0, None, None]
-    cam_y = cam[:, 1, None, None]
-    cam_z = cam[:, 2, None, None]
-    ndc_y = 1.0 - div(2.0 * y, float(H)) + shear[:, None, None]  # (B, H, 1)
-
-    done = torch.zeros((B, H, W), dtype=torch.bool, device=dev)
-    win = torch.full((B, H, W), -1, dtype=torch.int64, device=dev)
+    done = torch.zeros((B, H, W), dtype=torch.bool, device=records.device)
+    win = torch.full((B, H, W), -1, dtype=torch.int64, device=records.device)
     for r in range(R):
         rec = records[:, r, :, None, :]  # (B, 16, 1, W)
         hit = ~done & (y >= rec[:, 0]) & (y < rec[:, 1])
@@ -120,22 +116,24 @@ def render_portal_fused_ref(records, words, cam, hc: int, dxz, sky_img,
             alpha = ((wsel >> bit) & 1) == 1
             hit = hit & (~masked | alpha)
         win = torch.where(hit, r, win)
-        done = done | hit
-
-    # The first match's channels [2:13): kind p0 tsx tsy cbase light w t1
-    # t2 low high; zero where nothing matched.
+        done = done | ((hit & (rec[:, 2] != 0.0)) if done_on_kind else hit)
     src = records[:, :, 2:13, :].permute(0, 2, 1, 3)  # (B, 11, R, W)
     sel = torch.gather(src, 2, win.clamp_min(0)[:, None].expand(B, 11, H, W))
-    ch = torch.where((win >= 0)[:, None], sel, 0.0)
+    return torch.where((win >= 0)[:, None], sel, 0.0)
 
+
+def _shade_address(ch, ndc_y, dx, dz, cam_x, cam_y, cam_z, p11: float,
+                   n_rows: int, S1: int):
+    """The shade's per-pixel terms (B2's stage 2 and B8) from classified
+    channels ch (B, 11, ...), with ndc_y, dx, dz and the camera terms
+    broadcasting against ch[:, 0]: (texel address lin in the compact
+    table, colormap row crow, covered0, is_sky)."""
     kind = ch[:, 0]
     covered0 = kind != 0.0
     is_sky = kind == 3.0
     is_wall = kind == 2.0
     is_decor = kind == 4.0
     wall_like = is_wall | is_decor
-    dx = dxz[:, 0, None, :]
-    dz = dxz[:, 1, None, :]
 
     plane_h = ch[:, 1]
     safe_ndc = torch.where(torch.abs(ndc_y) < 1e-9, 1e-9, ndc_y)
@@ -162,24 +160,68 @@ def render_portal_fused_ref(records, words, cam, hc: int, dxz, sky_img,
         is_decor, torch.minimum(light, light * 2.0 - dist_d), light * 2.0 - dist_s
     )
     crow = to_i32(torch.floor((1.0 - lval) * float(n_rows))).clamp(0, n_rows - 1)
+    return lin, crow, covered0, is_sky
 
-    lin_l = lin.long()
+
+def _global_texel(tex, hole_bytes, lin):
+    """Texel (0..255) and hole flag from the global compact table (S1,
+    128) s8 (texel - 128) and its packed hole bits (Sh, 128) s8 (byte -
+    128), or no holes when hole_bytes is None."""
+    v1 = tex.reshape(-1).to(torch.int32)[lin.long()] + 128
+    if hole_bytes is None:
+        return v1, torch.zeros_like(v1, dtype=torch.bool)
+    hbyte = hole_bytes.reshape(-1).to(torch.int32)[(lin >> 3).long()] + 128
+    return v1, ((hbyte >> (lin & 7)) & 1) == 1
+
+
+def _shade_out(v1, hole, crow, covered0, is_sky, sky, cmap_i8):
+    """(palette index, covered) f32 from the texel, hole flag and row."""
+    v2 = (cmap_i8.reshape(-1).to(torch.int32)[(crow * 256 + v1).long()] + 128).float()
+    covered = covered0 & (is_sky | ~hole)
+    val = torch.where(is_sky, sky, v2)
+    return torch.where(covered, val, 0.0), covered.float()
+
+
+def _ndc_rows(H: int, device):
+    """(1, H, 1) pixel-row centres y = j + 0.5 and their ndc 1 - 2y/H."""
+    y = (torch.arange(H, dtype=torch.float32, device=device) + 0.5)[None, :, None]
+    return y, 1.0 - div(2.0 * y, float(H))
+
+
+def render_portal_fused_ref(records, words, cam, hc: int, dxz, sky_img,
+                            tex, hole_bytes, cmap_i8, height: int,
+                            p11: float, n_rows: int, shear=None):
+    """Plain version of B2.
+
+    records (B, R, 16, W) f32; words (B, K, n_words, W) i32; cam (B, 3);
+    dxz (B, 2, W); sky_img (B, H, W) f32; tex either the global compact
+    table (S1, 128) s8 (texel - 128), with hole_bytes (Sh, 128) s8 or
+    None for a holeless level, or the per-env active tables (B, S1, 128)
+    i16 (texel 0..255, 256 = hole; hole_bytes unused); cmap_i8 (S2, 128)
+    s8; shear (B,) or None. Returns (palette index, covered), each
+    (B, H, W) f32."""
+    B = records.shape[0]
+    dev = records.device
+    p11 = f32(p11)
+    per_env = tex.dim() == 3
+    S1 = tex.shape[1] if per_env else tex.shape[0]
+    if shear is None:
+        shear = torch.zeros((B,), dtype=torch.float32, device=dev)
+    y, ndc0 = _ndc_rows(height, dev)
+    ndc_y = ndc0 + shear[:, None, None]  # (B, H, 1)
+    cam_x, cam_y, cam_z = (cam[:, i, None, None] for i in range(3))
+    ch = _classify(records, words, cam_y, hc, ndc_y, y, p11, done_on_kind=False)
+    lin, crow, covered0, is_sky = _shade_address(
+        ch, ndc_y, dxz[:, 0, None, :], dxz[:, 1, None, :], cam_x, cam_y, cam_z,
+        p11, n_rows, S1)
     if per_env:
         v = torch.gather(tex.reshape(B, -1).to(torch.int32), 1,
-                         lin_l.reshape(B, -1)).reshape(B, H, W)
+                         lin.long().reshape(B, -1)).reshape(lin.shape)
         hole = v == 256
         v1 = torch.clamp_max(v, 255)
     else:
-        v1 = tex.reshape(-1).to(torch.int32)[lin_l] + 128
-        if hole_bytes is None:
-            hole = torch.zeros_like(covered0)
-        else:
-            hbyte = hole_bytes.reshape(-1).to(torch.int32)[lin_l >> 3] + 128
-            hole = ((hbyte >> (lin & 7)) & 1) == 1
-    v2 = (cmap_i8.reshape(-1).to(torch.int32)[(crow * 256 + v1).long()] + 128).float()
-    covered = covered0 & (is_sky | ~hole)
-    val = torch.where(is_sky, sky_img, v2)
-    return torch.where(covered, val, 0.0), covered.float()
+        v1, hole = _global_texel(tex, hole_bytes, lin)
+    return _shade_out(v1, hole, crow, covered0, is_sky, sky_img, cmap_i8)
 
 
 def render_portal_fused(records, words, cam, hc: int, dxz, sky_img, tex,
@@ -243,8 +285,147 @@ render_portal_fused.per_env_launches = 0  # of those, in the per-env mode
 
 
 # ---------------------------------------------------------------------------
+# B7: classify alone; B8: shade alone (the `portal_jnp` configuration).
+# ---------------------------------------------------------------------------
+
+
+def classify_alpha_ref(records, words, cam_y, hc: int, height: int,
+                       p11: float, shear=None):
+    """Plain version of B7: records (B, R, 16, W) f32, words (B, K,
+    n_words, W) i32, cam_y (B,), shear (B,) or None -> (B, 11, H, W) f32,
+    the channels [2:13) of the first covering record of non-zero kind
+    (a covering record of kind 0 stays until a later one covers), zero
+    where no record covers."""
+    B = records.shape[0]
+    dev = records.device
+    if shear is None:
+        shear = torch.zeros((B,), dtype=torch.float32, device=dev)
+    y, ndc0 = _ndc_rows(height, dev)
+    return _classify(records, words, cam_y[:, None, None], hc,
+                     ndc0 + shear[:, None, None], y, f32(p11), done_on_kind=True)
+
+
+def classify_alpha(records, words, cam_y, hc: int, height: int, p11: float,
+                   shear=None):
+    """Kernel B7 for CUDA tensors, its plain version for CPU tensors."""
+    if records.device.type == "cpu":
+        return classify_alpha_ref(records, words, cam_y, hc, height, p11, shear)
+    if records.device.type != "cuda":
+        raise ValueError(f"classify_alpha: unsupported device {records.device}")
+    B, R, nch, W = records.shape
+    H = int(height)
+    K, n_words = words.shape[1], words.shape[2]
+    if (nch != NCH or R != K * RECORDS_PER_CROSSING
+            or words.shape != (B, K, n_words, W) or cam_y.shape != (B,)):
+        raise ValueError("classify_alpha: bad shapes")
+    if (records.dtype, words.dtype) != (torch.float32, torch.int32):
+        raise ValueError("classify_alpha: bad dtypes")
+    dev = records.device
+    if shear is None:
+        shear = torch.zeros((B,), dtype=torch.float32, device=dev)
+    args = [t.contiguous() for t in (records, words, cam_y.float(), shear.float())]
+    out = torch.empty((B, 11, H, W), dtype=torch.float32, device=dev)
+    check(load().tdt_classify_alpha(
+        *[t.data_ptr() for t in args], out.data_ptr(), B, R, W, H, n_words,
+        int(hc), f32(p11), torch.cuda.current_stream(dev).cuda_stream,
+    ), "classify_alpha")
+    classify_alpha.launches += 1
+    return out
+
+
+classify_alpha.launches = 0
+
+
+def _check_hole_table(tex_i8, hole_bytes):
+    """B8 reads hole byte lin >> 3 for every texel address lin < S1 * 128:
+    the hole table must reach that far (the TPU kernel's lookup returns
+    byte 128, a hole, past its end). A holeless level passes a table of
+    ceil(S1 / 8) rows of -128."""
+    if hole_bytes.shape[0] * 1024 < tex_i8.shape[0] * 128:
+        raise ValueError(
+            f"shade_portal: hole table of {hole_bytes.shape[0]} rows does not "
+            f"cover a texel table of {tex_i8.shape[0]} rows (needs "
+            f"{-(-tex_i8.shape[0] // 8)})")
+
+
+def shade_portal_ref(ch, dxz, ndc_y, sky_img, cam, tex_i8, hole_bytes,
+                     cmap_i8, p11: float, n_rows: int, shear=None):
+    """Plain version of B8: ch (B, 11, P) classified channels, dxz (B, 2,
+    P) per-pixel ray directions, ndc_y (1, P), sky_img (B, P), cam (B, 3),
+    tex_i8 (S1, 128) s8, hole_bytes (Sh, 128) s8 with Sh >= S1 / 8,
+    cmap_i8 (S2, 128) s8, shear (B,) or None (added to ndc_y) ->
+    (palette index, covered), each (B, P) f32."""
+    _check_hole_table(tex_i8, hole_bytes)
+    B = ch.shape[0]
+    p11 = f32(p11)
+    if shear is None:
+        shear = torch.zeros((B,), dtype=torch.float32, device=ch.device)
+    ndc = ndc_y + shear[:, None]
+    cam_x, cam_y, cam_z = (cam[:, i, None] for i in range(3))
+    lin, crow, covered0, is_sky = _shade_address(
+        ch, ndc, dxz[:, 0], dxz[:, 1], cam_x, cam_y, cam_z, p11, n_rows,
+        tex_i8.shape[0])
+    v1, hole = _global_texel(tex_i8, hole_bytes, lin)
+    return _shade_out(v1, hole, crow, covered0, is_sky, sky_img, cmap_i8)
+
+
+def shade_portal(ch, dxz, ndc_y, sky_img, cam, tex_i8, hole_bytes, cmap_i8,
+                 p11: float, n_rows: int, shear=None):
+    """Kernel B8 for CUDA tensors, its plain version for CPU tensors."""
+    _check_hole_table(tex_i8, hole_bytes)
+    if ch.device.type == "cpu":
+        return shade_portal_ref(ch, dxz, ndc_y, sky_img, cam, tex_i8,
+                                hole_bytes, cmap_i8, p11, n_rows, shear)
+    if ch.device.type != "cuda":
+        raise ValueError(f"shade_portal: unsupported device {ch.device}")
+    B, c, P = ch.shape
+    if (c != 11 or dxz.shape != (B, 2, P) or ndc_y.shape != (1, P)
+            or sky_img.shape != (B, P) or cam.shape != (B, 3)
+            or tex_i8.shape[1] != 128 or hole_bytes.shape[1] != 128
+            or cmap_i8.shape[1] != 128):
+        raise ValueError("shade_portal: bad shapes")
+    if (tex_i8.dtype, hole_bytes.dtype, cmap_i8.dtype) != (torch.int8,) * 3:
+        raise ValueError("shade_portal: bad dtypes")
+    dev = ch.device
+    if shear is None:
+        shear = torch.zeros((B,), dtype=torch.float32, device=dev)
+    args = [t.contiguous() for t in (
+        ch.float(), dxz.float(), ndc_y.float(), sky_img.float(), cam.float(),
+        shear.float(), tex_i8, hole_bytes, cmap_i8)]
+    idx = torch.empty((B, P), dtype=torch.float32, device=dev)
+    cov = torch.empty((B, P), dtype=torch.float32, device=dev)
+    check(load().tdt_shade_portal(
+        *[t.data_ptr() for t in args], idx.data_ptr(), cov.data_ptr(), B, P,
+        tex_i8.shape[0], f32(p11), int(n_rows),
+        torch.cuda.current_stream(dev).cuda_stream,
+    ), "shade_portal")
+    shade_portal.launches += 1
+    return idx, cov
+
+
+shade_portal.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # B3: depth peel + resolve.
 # ---------------------------------------------------------------------------
+
+
+def _peel_cover(rows, px, py):
+    """Coverage of every pixel by every triangle row (B3 and B9): rows
+    (T, 16+) [e00..e22, zr, vs, valid, ...], px / py (1, P) -> (cover
+    (T, P) bool, NDC depth z (T, P))."""
+    sub = rows[:, :, None]  # (T, C, 1)
+    lam0 = sub[:, 0] * px + sub[:, 1] * py + sub[:, 2]
+    lam1 = sub[:, 3] * px + sub[:, 4] * py + sub[:, 5]
+    lam2 = sub[:, 6] * px + sub[:, 7] * py + sub[:, 8]
+    z = sub[:, 9] * px + sub[:, 10] * py + sub[:, 11]
+    slam = sub[:, 12] * px + sub[:, 13] * py + sub[:, 14]
+    cover = (
+        (sub[:, 15] > 0.0) & (lam0 >= 0.0) & (lam1 >= 0.0)
+        & (lam2 >= 0.0) & (slam > 0.0) & (z >= -1.0) & (z <= 1.0)
+    )
+    return cover, z
 
 
 def _pad_peel_inputs(rows, attrs, grid, ybounds, tile_p, chunk_t):
@@ -295,18 +476,10 @@ def peel_resolve_ref(rows, attrs, grid, ybounds, n_layers: int,
     out = torch.zeros((B, n_layers, OUT_CHANNELS, Pp), dtype=torch.float32, device=dev)
     big = float(BIG_ID)
     for b in range(B):
-        sub = rows[b][:, :, None]  # (Tp, 24, 1)
         consider = overlap[b][chunk_of_t][:, tile_of_p]  # (Tp, Pp)
-        lam0 = sub[:, 0] * px + sub[:, 1] * py + sub[:, 2]
-        lam1 = sub[:, 3] * px + sub[:, 4] * py + sub[:, 5]
-        lam2 = sub[:, 6] * px + sub[:, 7] * py + sub[:, 8]
-        z = sub[:, 9] * px + sub[:, 10] * py + sub[:, 11]
-        slam = sub[:, 12] * px + sub[:, 13] * py + sub[:, 14]
-        cover = (
-            consider & (sub[:, 15] > 0.0) & (lam0 >= 0.0) & (lam1 >= 0.0)
-            & (lam2 >= 0.0) & (slam > 0.0) & (z >= -1.0) & (z <= 1.0)
-        )
-        del lam0, lam1, lam2, slam, consider
+        cover, z = _peel_cover(rows[b], px, py)
+        cover &= consider
+        del consider
         ids = rows[b][:, 22][:, None]  # (Tp, 1)
         prev_z = torch.full((Pp,), -INF, device=dev)
         prev_id = torch.full((Pp,), -1.0, device=dev)
@@ -369,6 +542,89 @@ def peel_resolve(rows, attrs, grid, ybounds, n_layers: int,
 
 
 peel_resolve.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B9: depth peel (the `jnp` triangle path).
+# ---------------------------------------------------------------------------
+
+PEEL_COLS = 16
+MAX_CHUNK = 128  # csrc/peel.cuh kMaxChunk
+
+
+def pack_triangle_rows(e, det, vz, vs):
+    """(..., T, 3, 3), (..., T), (..., T, 3), (..., T, 3) -> (..., T, 16)
+    f32 rows [e00..e22, zr = vz / det, vs, valid] (raster_pallas.py:69)."""
+    safe_det = torch.where(det == 0.0, 1.0, det)
+    zr = vz / safe_det[..., None]
+    valid = (det > 0.0).to(torch.float32)
+    flat_e = e.reshape(*e.shape[:-2], 9)
+    return torch.cat([flat_e, zr, vs, valid[..., None]], dim=-1)
+
+
+def depth_peel_ref(rows, grid, n_layers: int, tile_p: int = 512,
+                   chunk_t: int = 128):
+    """Plain version of B9: rows (B, T, 16), grid (3, P) -> (z (B, K, P)
+    f32, id (B, K, P) i32). Layer k holds, per pixel, the least (z, id)
+    in lexicographic order among the covering triangles after layer k-1's;
+    ids are row positions; an empty pixel has z = inf, id = BIG_ID.
+    tile_p and chunk_t only shape the kernel's launch."""
+    del tile_p, chunk_t
+    B, T, _ = rows.shape
+    P = grid.shape[1]
+    dev = rows.device
+    px, py = grid[0][None, :], grid[1][None, :]
+    tid = torch.arange(T, device=dev)[:, None]  # (T, 1)
+    z_out = torch.empty((B, n_layers, P), dtype=torch.float32, device=dev)
+    id_out = torch.empty((B, n_layers, P), dtype=torch.int32, device=dev)
+    for b in range(B):
+        cover, z = _peel_cover(rows[b], px, py)
+        prev_z = torch.full((P,), -INF, device=dev)
+        prev_id = torch.full((P,), -1, dtype=torch.int64, device=dev)
+        for layer in range(n_layers):
+            after = (z > prev_z) | ((z == prev_z) & (tid > prev_id))
+            ok = cover & after
+            best_z = torch.where(ok, z, INF).amin(dim=0)
+            best_id = torch.where(ok & (z == best_z), tid, BIG_ID).amin(dim=0)
+            has = best_id < BIG_ID
+            # The winner's own z (amin may return either zero of a +-0 tie).
+            wz = torch.gather(z, 0, best_id.clamp_max(T - 1)[None])[0]
+            best_z = torch.where(has, wz, INF)
+            z_out[b, layer] = best_z
+            id_out[b, layer] = best_id.to(torch.int32)
+            prev_z, prev_id = best_z, best_id
+    return z_out, id_out
+
+
+def depth_peel(rows, grid, n_layers: int, tile_p: int = 512, chunk_t: int = 128):
+    """Kernel B9 for CUDA tensors, its plain version for CPU tensors."""
+    if rows.device.type == "cpu":
+        return depth_peel_ref(rows, grid, n_layers, tile_p, chunk_t)
+    if rows.device.type != "cuda":
+        raise ValueError(f"depth_peel: unsupported device {rows.device}")
+    B, T, c = rows.shape
+    P = grid.shape[1]
+    if c != PEEL_COLS or grid.shape[0] != 3 or T < 1:
+        raise ValueError("depth_peel: bad shapes")
+    if not (32 <= tile_p <= 1024 and tile_p % 32 == 0) or not 1 <= chunk_t <= MAX_CHUNK:
+        raise ValueError("depth_peel: tile_p must be a multiple of 32 in [32, 1024]"
+                         f" and chunk_t in [1, {MAX_CHUNK}]")
+    # Padded rows are invalid (column 15 = 0) and never cover a pixel.
+    rows = torch.nn.functional.pad(rows.float(), (0, 0, 0, (-T) % chunk_t)).contiguous()
+    grid = torch.nn.functional.pad(grid.float(), (0, (-P) % tile_p)).contiguous()
+    dev = rows.device
+    z = torch.empty((B, n_layers, P), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, n_layers, P), dtype=torch.int32, device=dev)
+    check(load().tdt_depth_peel(
+        rows.data_ptr(), grid.data_ptr(), z.data_ptr(), ids.data_ptr(), B,
+        rows.shape[1], P, grid.shape[1], int(n_layers), int(tile_p),
+        int(chunk_t), torch.cuda.current_stream(dev).cuda_stream,
+    ), "depth_peel")
+    depth_peel.launches += 1
+    return z, ids
+
+
+depth_peel.launches = 0
 
 
 # ---------------------------------------------------------------------------

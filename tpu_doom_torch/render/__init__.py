@@ -10,7 +10,7 @@ def render_dispatch(scene, pscene, cfg, state, width, height):
     triangle path otherwise. The whole batch renders in one piece (the
     TPU-tuned env chunking of the JAX package is not carried over)."""
     backend = check_raster_backend(cfg.raster_backend)
-    if backend == "portal" and pscene is not None:
+    if backend.startswith("portal") and pscene is not None:
         from .portal import render_frames_portal
 
         return render_frames_portal(pscene, scene, cfg, state, width, height)

@@ -6,9 +6,11 @@ billboard, the nearest crossings are walked front to back carrying the
 vertical clip window, and each crossing emits up to five window-clipped
 span records plus bit-packed alpha words for its masked family. Kernel
 B2 (`ops.raster.render_portal_fused`) then classifies and shades every
-pixel. Envs that overflow a budget (live crossings, visible segs, active
-texels), and pitched envs under `portal_pitch="triangle"`, render through
-the exact triangle path (kernel B3) instead.
+pixel; under `raster_backend="portal_jnp"` kernel B7 (`classify_alpha`)
+classifies and kernel B8 (`shade_portal`) shades, as two stages. Envs
+that overflow a budget (live crossings, visible segs, active texels), and
+pitched envs under `portal_pitch="triangle"`, render through the exact
+triangle path (kernel B3, or B9 under `portal_jnp`) instead.
 
 The JAX walk selects per-crossing attributes with exact one-hot matmuls;
 here they are indexed loads. `vmap` becomes the leading env dimension:
@@ -37,10 +39,16 @@ import math
 import numpy as np
 import torch
 
-from tpu_doom.geom.portal import PortalTable
-
 from .._numerics import div, f32, to_i32
-from ..ops.raster import gather_cells, render_portal_fused, scatter_live, select_rows
+from ..geom.portal import PortalTable
+from ..ops.raster import (
+    classify_alpha,
+    gather_cells,
+    render_portal_fused,
+    scatter_live,
+    select_rows,
+    shade_portal,
+)
 from ..sim.lights import light_table_u8
 from .camera import tan_f32
 from .raster import ANIM_FPS, anim_atlas_uv, render_frames, sky_x_texel, sky_y_texel
@@ -807,9 +815,16 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
     return records, words, aux
 
 
-def sky_image(pt, scene, cfg, width, height, sy_, cy_, sp_, cp_):
+def sky_image(pt, scene, cfg, width, height, sy_, cy_, sp_, cp_,
+              window_rows: bool = False):
     """Per-env colormapped sky image (B, H, W) f32: the sky's texel
-    coordinates are row/column separable, so two row gathers."""
+    coordinates are row/column separable, so two row gathers.
+
+    Image row j takes its ndc from y = j + 0.5, as the JAX package's
+    `_sky_image` (B2's input) does, or with `window_rows` from the window
+    y = H - j - 0.5, as its `_shade_portal` (the `portal_jnp` shade) and
+    the triangle path do. The band fold mirrors the two onto each other at
+    zero pitch; under pitch they differ."""
     pcfg = cfg.player
     H, W = height, width
     p00, p11 = _projection(cfg, W, H)
@@ -824,7 +839,8 @@ def sky_image(pt, scene, cfg, width, height, sy_, cy_, sp_, cp_):
     v_r0 = torch.atan2(fwd_x, fwd_z)[:, None]
     v_r1 = ((p11 * r1z) / torch.where(fwd_w == 0.0, 1.0, fwd_w))[:, None]
     xs = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
-    ys = torch.arange(H, dtype=torch.float32, device=dev) + 0.5
+    j = torch.arange(H, dtype=torch.float32, device=dev)
+    ys = H - j - 0.5 if window_rows else j + 0.5
     ndc_x = div(xs, 0.5 * W) - 1.0
     ndc_yf = div(ys, 0.5 * H) - 1.0
     sky_u = ndc_x - div(4.0 * v_r0, f32(math.pi))  # (B, W)
@@ -857,19 +873,62 @@ def fused_inputs(pscene, scene, cfg, width, height, state):
     return args, dict(shear=aux["shear"]), aux["overflow"]
 
 
+def oracle_inputs(pscene, scene, cfg, width, height, state):
+    """Walk every env and assemble the `portal_jnp` configuration's kernel
+    arguments: returns (B7's args, B8's args after its channels, shear
+    (B,), overflow (B,) bool). B8's sky image is `_shade_portal`'s
+    (`sky_image(window_rows=True)`). The JAX package takes no active set
+    on this path, so B8 reads the dense global table on every level; a holeless
+    level gets a full-size table of empty hole bytes (ceil(S1 / 8) rows
+    of -128), never the TPU's (1, 128) stub, which B8 would read past."""
+    H, W = height, width
+    records, words, aux = walk(pscene, scene, cfg, W, H,
+                               int(cfg.portal_crossings), state)
+    B = records.shape[0]
+    P = H * W
+    dev = records.device
+    p11 = 1.0 / math.tan(math.radians(cfg.fov) / 2.0)
+    dxz = aux["d"].transpose(1, 2)[:, :, None, :].expand(B, 2, H, W).reshape(B, 2, P)
+    sky = sky_image(pscene, scene, cfg, W, H, aux["sy"], aux["cy"], aux["sp"],
+                    aux["cp"], window_rows=True).reshape(B, P)
+    y = torch.arange(H, dtype=torch.float32, device=dev) + 0.5
+    ndc_y = (1.0 - div(2.0 * y, float(H)))[:, None].expand(H, W).reshape(1, P)
+    tex = pscene["tex_i8"]
+    hole = pscene.get("hole_bytes")
+    if hole is None:
+        hole = torch.full((-(-tex.shape[0] // 8), 128), -128, dtype=torch.int8,
+                          device=dev)
+    classify_args = (records, words, aux["cam"][:, 1], pscene["hc"], H, p11)
+    shade_args = (dxz, ndc_y, sky, aux["cam"], tex, hole, pscene["cmap_i8"], p11,
+                  scene.palette_lut.shape[0])
+    return classify_args, shade_args, aux["shear"], aux["overflow"]
+
+
 def render_portal_zero_pitch(pscene, scene, cfg, state, width, height):
     """The column-walk path proper (pitch as y-shear) -> (idx u8, covered
-    bool, overflow (B,) bool)."""
-    args, kw, overflow = fused_inputs(pscene, scene, cfg, width, height, state)
-    idx_f, cov_f = render_portal_fused(*args, **kw)
+    bool, overflow (B,) bool): B2, or B7 then B8 under `portal_jnp`."""
+    if cfg.raster_backend == "portal_jnp":
+        cargs, sargs, shear, overflow = oracle_inputs(
+            pscene, scene, cfg, width, height, state)
+        ch = classify_alpha(*cargs, shear=shear)
+        B = ch.shape[0]
+        del cargs  # the records and words: B8 needs neither
+        idx_f, cov_f = shade_portal(ch.reshape(B, 11, -1), *sargs, shear=shear)
+        idx_f = idx_f.reshape(B, height, width)
+        cov_f = cov_f.reshape(B, height, width)
+    else:
+        args, kw, overflow = fused_inputs(pscene, scene, cfg, width, height, state)
+        idx_f, cov_f = render_portal_fused(*args, **kw)
     return idx_f.to(torch.uint8), cov_f > 0.5, overflow
 
 
 def render_frames_portal(pscene, scene, cfg, state, width, height):
     """(indices (B, H, W) u8, covered (B, H, W) bool) via the portal path,
     with the exact triangle fallback for overflowed envs (and pitched
-    ones under portal_pitch="triangle"). Deciding whether any env falls
-    back reads one flag to the host per frame."""
+    ones under portal_pitch="triangle"): B3's path, or the "jnp" path
+    under `portal_jnp` (raster.render_frames picks by the config).
+    Deciding whether any env falls back reads one flag to the host per
+    frame."""
     idx, cov, overflow = render_portal_zero_pitch(
         pscene, scene, cfg, state, width, height)
     if cfg.portal_pitch == "triangle":

@@ -1,11 +1,16 @@
 """Triangle rasterizer: the exact fallback of the portal renderer.
 
-Port of the kernel path of `tpu_doom/render/raster_jnp.py`: per-env
-vertex processing and triangle setup (`_prepare_env`), row/attribute
-packing (`pack_triangle_rows_full` / `pack_triangle_attrs`), the y-sort,
-the fused peel + resolve (kernel B3, `ops.raster.peel_resolve`) and the
-channel shading (`_shade_from_channels`). The env batch is written out:
-per-vertex tables are (B, N, ...), per-triangle ones (B, T, ...).
+Port of `tpu_doom/render/raster_jnp.py`: per-env vertex processing and
+triangle setup (`_prepare_env`), then one of two paths:
+* the kernel path: row/attribute packing (`pack_triangle_rows_full` /
+  `pack_triangle_attrs`), the y-sort, the fused peel + resolve (kernel
+  B3, `ops.raster.peel_resolve`) and the channel shading
+  (`_shade_from_channels`);
+* the "jnp" reference path: the K-layer peel (kernel B9,
+  `ops.raster.depth_peel`), the first layer whose texel survives
+  (`_winner_from_layers`) and the shade (`_shade`).
+The env batch is written out: per-vertex tables are (B, N, ...),
+per-triangle ones (B, T, ...).
 """
 
 from __future__ import annotations
@@ -14,8 +19,8 @@ import math
 
 import torch
 
-from .._numerics import div, f32, to_i32
-from ..ops.raster import peel_resolve
+from .._numerics import div, f32, rdiv, to_i32
+from ..ops.raster import depth_peel, pack_triangle_rows, peel_resolve
 from ..sim.lights import light_table_u8
 from .camera import camera_matrices
 
@@ -27,15 +32,28 @@ LIGHT_SCALE = 2.0
 ATTR_COLS = 16
 
 
+RASTER_BACKENDS = ("portal", "portal_jnp", "auto", "jnp")
+
+
 def check_raster_backend(backend: str) -> str:
-    """'portal' or 'auto' (the triangle path); the JAX package's other
-    names pick a TPU kernel, interpret mode or a jnp oracle, which the
-    port replaces by choosing kernel or plain version by device."""
-    if backend not in ("portal", "auto"):
+    """The renderer a config names; kernel or plain version is chosen by
+    the tensors' device, never by the name:
+    * "portal": the column walk, then the fused classify + shade (B2);
+      envs it cannot take fall back to "auto"'s triangle path;
+    * "portal_jnp": the JAX package's reference configuration of the same
+      renderer: the walk, the classify (B7), then the shade (B8) on the
+      global compact texel table; envs it cannot take fall back to
+      "jnp"'s triangle path;
+    * "auto": the triangle path through the fused peel + resolve (B3);
+    * "jnp": the JAX package's reference triangle path: the K-layer peel
+      (B9), the first layer whose texel survives, then the shade.
+    The JAX package's other names pick a TPU kernel or interpret mode,
+    which the port has no use for."""
+    if backend not in RASTER_BACKENDS:
         raise ValueError(
             f"raster_backend={backend!r} names a JAX/TPU backend; the port "
-            "has 'portal' and 'auto' (triangle path) and picks kernel or "
-            "plain version by the tensors' device")
+            f"has {RASTER_BACKENDS} and picks kernel or plain version by "
+            "the tensors' device")
     return backend
 
 
@@ -223,10 +241,6 @@ def prepare(scene, cfg, width, height, state):
 def pack_triangle_rows_full(e, det, vz, vs, tri_uv):
     """(B, T, 24) rows [e (9), zr (3), vs (3), valid, uxr (3), uyr (3),
     draw-order id, 0] (raster_pallas.py:69-92)."""
-    safe_det = torch.where(det == 0.0, 1.0, det)
-    zr = vz / safe_det[..., None]
-    valid = (det > 0.0).to(torch.float32)
-    flat_e = e.reshape(*e.shape[:-2], 9)
     ux, uy = tri_uv[..., 0], tri_uv[..., 1]  # (B, T, 3)
     uxr = ux[..., 0, None] * e[..., 0, :] + ux[..., 1, None] * e[..., 1, :] \
         + ux[..., 2, None] * e[..., 2, :]
@@ -235,8 +249,8 @@ def pack_triangle_rows_full(e, det, vz, vs, tri_uv):
     T = det.shape[-1]
     orig_id = torch.arange(T, dtype=torch.float32, device=det.device).expand(det.shape)
     return torch.cat([
-        flat_e, zr, vs, valid[..., None], uxr, uyr, orig_id[..., None],
-        torch.zeros_like(valid)[..., None],
+        pack_triangle_rows(e, det, vz, vs), uxr, uyr, orig_id[..., None],
+        torch.zeros_like(det)[..., None],
     ], dim=-1)
 
 
@@ -376,9 +390,121 @@ def peel_inputs(scene, cfg, width, height, state):
     return rows, attrs, grid, ybounds, prep["pvm"]
 
 
+# ---------------------------------------------------------------------------
+# The "jnp" path: peel (B9), first surviving layer, shade
+# (raster_jnp.py:261-414, 594-614), with the env batch written out.
+# ---------------------------------------------------------------------------
+
+
+def _sample(img, u, v):
+    """NEAREST + REPEAT texel of a paletted image at texel coords (u, v)."""
+    h, w = img.shape
+    x = torch.remainder(to_i32(torch.floor(u)), w)
+    y = torch.remainder(to_i32(torch.floor(v)), h)
+    return img[y.long(), x.long()]
+
+
+def layer_uv(prep, tid, grid):
+    """Perspective-correct atlas uv (B, P, 2), w (B, P) and pass (B, P)
+    of triangles tid (B, P) at the pixels grid (3, P)."""
+    bidx = torch.arange(tid.shape[0], device=tid.device)[:, None]
+    et = prep["e"][bidx, tid]  # (B, P, 3, 3)
+    g0, g1, g2 = grid[0], grid[1], grid[2]
+    lam = et[..., 0] * g0[:, None] + et[..., 1] * g1[:, None] + et[..., 2] * g2[:, None]
+    slam = lam[..., 0] + lam[..., 1] + lam[..., 2]
+    safe = torch.where(slam == 0.0, 1.0, slam)
+    alpha = lam / safe[..., None]  # (B, P, 3)
+    tuv = prep["v_tile_uv_tri"][bidx, tid]  # (B, P, 3, 2)
+    uv = (alpha[..., 0, None] * tuv[..., 0, :] + alpha[..., 1, None] * tuv[..., 1, :]
+          + alpha[..., 2, None] * tuv[..., 2, :])
+    ts = prep["v_tile_size_tri"][tid]  # (B, P, 2)
+    safe_ts = torch.where(ts == 0.0, 1.0, ts)
+    p_pass = prep["tri_pass"][tid]
+    base = torch.where((p_pass == PASS_WALL)[..., None],
+                       prep["v_atlas_b_tri"][bidx, tid], prep["v_atlas_a_tri"][bidx, tid])
+    uv = torch.remainder(uv, safe_ts) + base
+    w = prep["det"][bidx, tid] / safe
+    return uv, w, p_pass
+
+
+def alpha_survives(scene, prep, tid, grid, has):
+    """Does each layer texel (B, P) survive the GL discard test?"""
+    uv, _, p_pass = layer_uv(prep, tid, grid)
+    al_wall = _sample(scene.walls_atlas_alpha, uv[..., 0], uv[..., 1])
+    al_dec = _sample(scene.decor_atlas_alpha, uv[..., 0], uv[..., 1])
+    keep = torch.where(p_pass == PASS_DECOR, al_dec, al_wall).bool()
+    return has & torch.where(prep["transparent"][tid], keep, True)
+
+
+def winner_from_layers(scene, prep, z_layers, id_layers, grid):
+    """First of the K (z, id) layers (B, K, P) whose texel survives ->
+    triangle ids (B, P), -1 where uncovered."""
+    T = prep["e"].shape[1]
+    B, K, P = z_layers.shape
+    best = torch.full((B, P), -1, dtype=torch.int64, device=z_layers.device)
+    resolved = torch.zeros((B, P), dtype=torch.bool, device=z_layers.device)
+    for k in range(K):
+        ids = id_layers[:, k].long()
+        has = torch.isfinite(z_layers[:, k]) & (ids < T)
+        tid = torch.where(has, ids, 0).clamp_max(T - 1)
+        win = alpha_survives(scene, prep, tid, grid, has) & ~resolved
+        best = torch.where(win, tid, best)
+        resolved = resolved | win | ~has
+    return best
+
+
+def shade(scene, width, height, prep, best_id, grid):
+    """Fragment shading of the winning triangles (B, P) -> (indices u8,
+    covered bool), each (B, P)."""
+    covered = best_id >= 0
+    tid = best_id.clamp_min(0)
+    uv, w, p_pass = layer_uv(prep, tid, grid)
+    u, v = uv[..., 0], uv[..., 1]
+    texel = torch.where(
+        p_pass == PASS_FLAT, _sample(scene.flats_atlas, u, v),
+        torch.where(p_pass == PASS_WALL, _sample(scene.walls_atlas_index, u, v),
+                    _sample(scene.decor_atlas_index, u, v))).long()
+    lights_f = prep["lights_f"]
+    li = prep["v_light_tri"][tid].long().clamp(0, lights_f.shape[1] - 1)
+    v_light = torch.gather(lights_f, 1, li)
+    dist_s = torch.clamp_max(1.0 - rdiv(DIST_SCALE_STATIC, w + DIST_SCALE_STATIC), 1.0)
+    dist_d = torch.clamp_max(1.0 - rdiv(DIST_SCALE_SPRITE, w + DIST_SCALE_SPRITE), 1.0)
+    light = torch.where(p_pass == PASS_DECOR,
+                        torch.minimum(v_light, v_light * LIGHT_SCALE - dist_d),
+                        v_light * LIGHT_SCALE - dist_s)
+    n_rows = scene.palette_lut.shape[0]
+    row = to_i32(torch.floor((1.0 - light) * float(n_rows))).clamp(0, n_rows - 1)
+    cmaps = scene.colormaps.long()
+    index_static = cmaps[row.long(), texel]
+    sky_x, sky_y = sky_coords(scene, width, height, prep["pvm"], grid)
+    index_sky = cmaps[0][scene.sky_index.long()[sky_y.long(), sky_x.long()]]
+    index = torch.where(p_pass == PASS_SKY, index_sky, index_static)
+    return torch.where(covered, index, 0).to(torch.uint8), covered
+
+
+def render_frames_jnp(scene, cfg, state, width: int, height: int):
+    """The "jnp" triangle path -> (indices (B, H, W) u8, covered (B, H, W)
+    bool): B9's K layers of unsorted rows, the first layer whose texel
+    survives, then the shade. The depth is B9's z = zr . p with zr = vz /
+    det rounded first, where the JAX package's dense peel computes
+    (vz . p) / det."""
+    B = state.pos.shape[0]
+    grid = pixel_grid(width, height, state.pos.device)
+    prep = prepare(scene, cfg, width, height, state)
+    rows = pack_triangle_rows(prep["e"], prep["det"], prep["vz"], prep["vs"])
+    z, ids = depth_peel(rows, grid, max(int(cfg.depth_layers), 1),
+                        tile_p=cfg.raster_tile_p, chunk_t=cfg.raster_chunk_t)
+    best = winner_from_layers(scene, prep, z, ids, grid)
+    idx, cov = shade(scene, width, height, prep, best, grid)
+    return idx.reshape(B, height, width), cov.reshape(B, height, width)
+
+
 def render_frames(scene, cfg, state, width: int, height: int):
     """Triangle path for every env -> (indices (B, H, W) u8, covered
-    (B, H, W) bool)."""
+    (B, H, W) bool): the "jnp" path for the two reference configurations,
+    else the fused peel + resolve (B3)."""
+    if cfg.raster_backend in ("jnp", "portal_jnp"):
+        return render_frames_jnp(scene, cfg, state, width, height)
     B = state.pos.shape[0]
     rows, attrs, grid, ybounds, pvm = peel_inputs(scene, cfg, width, height, state)
     channels = peel_resolve(rows, attrs, grid, ybounds, max(int(cfg.depth_layers), 1),

@@ -9,8 +9,7 @@ from __future__ import annotations
 import torch
 
 from .._numerics import div
-
-from tpu_doom.wad.light import KIND_ALTERNATE, KIND_GLOW, KIND_RANDOM
+from ..wad.light import KIND_ALTERNATE, KIND_GLOW, KIND_RANDOM
 
 
 def _fract(x):

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_doom.geom.builder import LevelArrays
+from ..geom.builder import LevelArrays
 
 _FIELDS = (
     "static_pos", "static_atlas_uv", "static_tile_uv", "static_tile_size",

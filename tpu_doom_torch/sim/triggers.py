@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_doom.geom.builder import EXIT_NONE
+from ..geom.builder import EXIT_NONE
 
 T_ANY, T_PUSH, T_SWITCH, T_WALKOVER, T_GUN = 0, 1, 2, 3, 4
 
