@@ -18,13 +18,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
      envs after 8 bench ticks, from the port's own walk: B4 at shipped
      defaults, B6, B5 and B2's per-env mode with
      portal_global_segs_max=1024 (all bitwise).
-  4. goldens: the triangle path (B3) and the jnp path (B9) against
+  4. tools: the kernels of the port's two instruments, which no main-path
+     segment runs (their launch counts there stay 0). B10
+     (tools/onehotbench.py): ldg, smem and copy bitwise against the plain
+     version at the TPU tool's defaults (S, n, iters, grid) = (534, 3072,
+     16, 64), which are launch-bound, and at the main path's volume, one
+     lookup per pixel of a 256-env 320x200 frame (n = 16,384,000, iters
+     = grid = 1), beside one torch.take. B11 (tools/kernelbudget.py): B2's
+     eight stage-budget variants on the tool's inputs (:test: x 256 envs
+     at 320x200, reset, yaws from default_rng(0)), each at 0 px against
+     its plain version and `full` bitwise equal to B2's production kernel,
+     each timed, with each stage's share (full - variant) / full.
+  5. goldens: the triangle path (B3) and the jnp path (B9) against
      tests/golden/frames.npz at 160x100, the portal (B2) and portal_jnp
      (B7, B8) paths on the 8 verify poses at 320x200 against
      tests/golden/verify_ref.npz, and the 8 :texstress: states of
      tests/golden/verify_texstress_ref.npz at 320x200 in both texel
      configs and under portal_jnp (all made by the JAX package).
-  5. main path: every segment runs with the launch counts set to 0 just
+  6. main path: every segment runs with the launch counts set to 0 just
      before it and read just after:
      bench: DoomSim on :test: at 320x200 x 256 envs, bench actions, 8
        warm-up ticks, then 5 windows of 32 timed ticks of step + render;
@@ -98,7 +109,15 @@ KERNELS = {
     "depth_peel": dict(
         source="tpu_doom_torch/csrc/depth_peel.cu",
         replaces="tpu_doom/ops/raster_pallas.py:169"),
+    # The instruments' kernels (phase 4); no main-path segment launches them.
+    "onehot_lookup": dict(
+        source="tpu_doom_torch/csrc/onehot_lookup.cu",
+        replaces="tools/onehotbench.py:82"),
+    "render_portal_ablated": dict(
+        source="tpu_doom_torch/csrc/render_portal.cu",
+        replaces="tools/kernelbudget.py:201"),
 }
+TOOL_KERNELS = ("onehot_lookup", "render_portal_ablated")
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -135,13 +154,13 @@ def bench_actions(sim, batch):
     )
 
 
-def time_ms(fn):
-    """Median milliseconds of TIMING_CALLS calls after two warm-up calls."""
+def time_ms(fn, calls=TIMING_CALLS):
+    """Median milliseconds of `calls` calls after two warm-up calls."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMING_CALLS):
+    for _ in range(calls):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -173,6 +192,29 @@ def record(results, name, err, ms, plain, n_bytes, ops=0.0, library_ms=None):
     print(f"[bound] {name}: {n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> bound"
           f" {r['bound_ms']:.4f} ms by {r['bound_by']}; kernel {ms:.4f} ms"
           f" ({r['bound_ms'] / ms:.1%} of bound); one PyTorch call: {lib}")
+
+
+def tool_wrappers():
+    from tpu_doom_torch.tools.kernelbudget import render_portal_ablated
+    from tpu_doom_torch.tools.onehotbench import lookup
+
+    return {"onehot_lookup": lookup, "render_portal_ablated": render_portal_ablated}
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0, the tools' included."""
+    from tpu_doom_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
+    for fn in tool_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    """Launches per kernel since `reset_counts`, the tools' included."""
+    from tpu_doom_torch.ops import launch_counts
+
+    return {**launch_counts(), **{k: fn.launches for k, fn in tool_wrappers().items()}}
 
 
 def max_abs_err(a, b):
@@ -542,6 +584,83 @@ def phase_kernels_texstress(results):
            nbytes(*args[:3], *args[4:7], args[8], gi, gc_), gi.numel() * SHADE_PIXEL_OPS)
 
 
+def phase_tools(results):
+    """Phase 4: B10 and B11, the instruments' kernels, against their plain
+    versions on the card, timed."""
+    from tpu_doom_torch.ops import render_portal_fused
+    from tpu_doom_torch.tools import kernelbudget as KB
+    from tpu_doom_torch.tools import onehotbench as OH
+
+    # B10 at the TPU tool's defaults (3.1 M lookups per call: bound 0.3 us,
+    # so launch-bound), then at the main path's volume (one lookup per
+    # pixel of a 256-env frame), which is what the table record keeps.
+    for label, (S, n, iters, grid) in (
+            ("the TPU tool's defaults (launch-bound)", (534, 3072, 16, 64)),
+            ("the main path's volume", (534, B_MAIN * W_MAIN * H_MAIN, 1, 1))):
+        idx, tab = OH.make_inputs(S, n, "cuda")
+        ms = {}
+        for v in OH.VARIANTS:
+            got = OH.lookup(idx, tab, iters, grid, v)
+            want = OH.lookup_ref(idx, tab, iters, grid, v)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            del got, want
+            print(f"[tool] B10 onehot_lookup {v} S={S} n={n} iters={iters} grid={grid}:"
+                  f" equal to its plain version {same} (ceiling 0)")
+            require(same, f"B10 {v} disagrees with its plain version")
+            ms[v] = time_ms(lambda v=v: OH.lookup(idx, tab, iters, grid, v))
+        plain = time_ms(lambda: OH.lookup_ref(idx, tab, iters, grid))
+        # One add per lookup; the bytes are idx and the table read once and
+        # the (grid, n) int32 output written once.
+        n_bytes, ops = nbytes(idx, tab) + grid * n * 4, grid * iters * n
+        # The library yardstick: torch.take, which computes the same function
+        # at iters = 1 (idx < S * 128); it takes int64 indices, made untimed.
+        idx64 = idx.long()
+        lib = (time_ms(lambda: torch.take(tab.view(-1), idx64)) if iters == 1 else None)
+        times = ", ".join(f"{v} {t:.4f} ms ({t * 1e6 / (iters * grid * n):.6f} ns per"
+                          " element lookup)" for v, t in ms.items())
+        print(f"[tool] B10 at {label}: {times}; plain {plain:.4f} ms; one"
+              f" torch.take: {'none at iters > 1' if lib is None else f'{lib:.4f} ms'}")
+        if iters == 1:
+            record(results, "onehot_lookup", 0.0, ms["ldg"], plain, n_bytes, ops,
+                   library_ms=lib)
+        else:
+            b = bound(n_bytes, ops)
+            print(f"[bound] B10 at {label}: {n_bytes / 1e6:.3f} MB -> bound"
+                  f" {b['bound_ms']:.6f} ms by {b['bound_by']}")
+        del idx, idx64, tab
+
+    # B11 on the TPU tool's inputs.
+    args, kw = KB.budget_inputs(B_MAIN, W_MAIN, H_MAIN, "cuda")
+    pi, pc = render_portal_fused(*args, **kw)
+    ms = {"prod": time_ms(lambda: render_portal_fused(*args, **kw))}
+    plain, err = {}, {}
+    for name, stages in KB.ABLATIONS.items():
+        gi, gc = KB.render_portal_ablated(*args, **kw, ablate=stages)
+        wi, wc = KB.render_portal_ablated_ref(*args, **kw, ablate=stages)
+        torch.cuda.synchronize()
+        mism = int((gi != wi).sum()) + int((gc != wc).sum())
+        err[name] = max(max_abs_err(gi, wi), max_abs_err(gc, wc))
+        same_b2 = bitwise_equal(gi, pi) and bitwise_equal(gc, pc)
+        ms[name] = time_ms(lambda s=stages: KB.render_portal_ablated(*args, **kw, ablate=s))
+        plain[name] = time_ms(lambda s=stages: KB.render_portal_ablated_ref(
+            *args, **kw, ablate=s), calls=3)
+        print(f"[tool] B11 render_portal_ablated {name} records {tuple(args[0].shape)}:"
+              f" {mism} mismatched idx/cov px (ceiling 0), max_abs_err {err[name]};"
+              f" bitwise equal to B2 {same_b2}; {ms[name]:.4f} ms vs plain"
+              f" {plain[name]:.4f} ms (median of 3)")
+        require(mism == 0, f"B11 {name} disagrees with its plain version on {mism} px")
+        require(same_b2 or name != "full", "B11 full is not bitwise B2's production output")
+    print(f"[tool] B11 stage budget, :test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs: prod"
+          f" {ms['prod']:.4f} ms, full {ms['full']:.4f} ms; share (full - variant) / full: "
+          + ", ".join(f"{n} {(ms['full'] - ms[n]) / ms['full']:+.4f}"
+                      for n in KB.ABLATIONS if n != "full")
+          + "; no_flatten: not applicable on this card")
+    tables = [t for t in args[6:9] if t is not None]
+    record(results, "render_portal_ablated", err["full"], ms["full"], plain["full"],
+           nbytes(*args[:3], *args[4:6], *tables, pi, pc), pi.numel() * SHADE_PIXEL_OPS)
+
+
 GOLDEN_SCENARIOS = {
     # tests/golden/regen.py:22-36: pos, yaw, pitch, time, door offset.
     "start": (None, None, None, None, 0.0),
@@ -665,9 +784,7 @@ def timed_segment(tag, label, sim, state, acts, windows, ticks, needed):
     coverage and the share of envs on the triangle fallback per tick;
     requires each `needed` kernel to have run every tick. Returns the
     launch counts."""
-    from tpu_doom_torch.ops import launch_counts, reset_launch_counts
-
-    reset_launch_counts()
+    reset_counts()
     check = torch.zeros((), dtype=torch.int64, device=sim.device)
     cov_sum = torch.zeros((), dtype=torch.float64, device=sim.device)
     rates, fell = [], []
@@ -683,7 +800,7 @@ def timed_segment(tag, label, sim, state, acts, windows, ticks, needed):
               f" {dt * 1e3 / ticks:.4f} ms/tick wall,"
               f" {cpu * 1e3 / ticks:.4f} ms/tick process CPU:"
               f" {rates[-1]:.1f} env*frames/s")
-    counts = launch_counts()
+    counts = read_counts()
     coverage = float(cov_sum) / (windows * ticks * B_MAIN * W_MAIN * H_MAIN)
     share = [round(f / B_MAIN, 4) for f in fell]
     print(f"[{tag}] {label}, {windows} windows of {ticks} ticks of step + render:"
@@ -703,14 +820,12 @@ def fallback_segment(tag, sim, state, acts, needed):
     """FALLBACK_TICKS ticks of the half-pitched fallback sim with the
     launch counts set to 0 before and read after; the triangle path's
     kernel `needed` must have run."""
-    from tpu_doom_torch.ops import launch_counts, reset_launch_counts
-
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     state, _, cov = run_ticks(sim, state, acts, FALLBACK_TICKS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = read_counts()
     coverage = float(cov) / (FALLBACK_TICKS * B_MAIN * W_MAIN * H_MAIN)
     print(f"[{tag}] raster_backend={sim.config.raster_backend}"
           f" portal_pitch=triangle, {B_MAIN // 2} envs pitched 0.3,"
@@ -722,8 +837,6 @@ def fallback_segment(tag, sim, state, acts, needed):
 
 
 def phase_main(results):
-    from tpu_doom_torch.ops import launch_counts, reset_launch_counts
-
     sim = make_sim()
     state = sim.reset()
     acts = bench_actions(sim, B_MAIN)
@@ -776,7 +889,8 @@ def phase_main(results):
 
     totals = {k: sum(c[k] for c in segments.values()) for k in results}
     for name, r in results.items():
-        require(totals[name] > 0, f"{name} never launched on the main path")
+        require(name in TOOL_KERNELS or totals[name] > 0,
+                f"{name} never launched on the main path")
         r.update(launches=totals[name],
                  **{f"{seg}_launches": c[name] for seg, c in segments.items()})
     return list(segments)
@@ -789,6 +903,7 @@ def main():
                for name, meta in KERNELS.items()}
     phase_kernels(results)
     phase_kernels_texstress(results)
+    phase_tools(results)
     phase_goldens()
     segments = phase_main(results)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -154,3 +154,41 @@ def test_reference_config_kernels_match_plain_versions_on_card(cuda_device):
     z, ids = depth_peel(rows, grid, 3, tile_p=256, chunk_t=64)
     zr, idr = depth_peel_ref(rows, grid, 3)
     assert torch.equal(ids, idr) and torch.equal(z.view(torch.int32), zr.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_onehot_lookup_matches_plain_version_on_card(cuda_device):
+    """On the card: B10's three variants equal `lookup_ref` on the TPU
+    tool's inputs at its table size, and `smem` refuses a table above the
+    card's opt-in shared memory instead of reading it another way."""
+    from tpu_doom_torch.tools import onehotbench as OH
+
+    idx, tab = OH.make_inputs(534, 3072, cuda_device)
+    for variant in OH.VARIANTS:
+        got = OH.lookup(idx, tab, 16, 4, variant)
+        assert torch.equal(got, OH.lookup_ref(idx, tab, 16, 4, variant)), variant
+    big = torch.zeros((OH.smem_optin() // 128 + 1, 128), dtype=torch.int8,
+                      device=cuda_device)
+    with pytest.raises(ValueError, match="opt-in"):
+        OH.lookup(idx, big, 1, 1, "smem")
+
+
+@pytest.mark.cuda
+def test_render_portal_ablated_matches_plain_versions_on_card(cuda_device):
+    """On the card: every stage-budget variant of B2 equals its plain
+    version, and `full` equals the production kernel bit for bit."""
+    from tpu_doom_torch.ops import render_portal_fused
+    from tpu_doom_torch.render.portal import fused_inputs
+    from tpu_doom_torch.tools import kernelbudget as KB
+
+    sim = TorchSim(GameConfig(wad_file=":test:", width=64, height=40, batch_size=3,
+                              raster_backend="portal"), cuda_device)
+    s = sim.reset()._replace(yaw=torch.tensor([0.0, 1.5, 4.0], device=cuda_device))
+    args, kw, _ = fused_inputs(sim.portal_scene(), sim.scene, sim.config, 64, 40, s)
+    for name, stages in KB.ABLATIONS.items():
+        gi, gc = KB.render_portal_ablated(*args, **kw, ablate=stages)
+        wi, wc = KB.render_portal_ablated_ref(*args, **kw, ablate=stages)
+        assert torch.equal(gi, wi) and torch.equal(gc, wc), name
+    pi, pc = render_portal_fused(*args, **kw)
+    gi, gc = KB.render_portal_ablated(*args, **kw)
+    assert torch.equal(gi.view(torch.int32), pi.view(torch.int32)) and torch.equal(gc, pc)

@@ -37,6 +37,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import bench_actions, make_sim  # noqa: E402
 from tpu_doom_torch.render import portal as P  # noqa: E402
 
+# Substrings of the profiler's kernel names. "render_portal_kernel" also
+# names B2's stage-budget instantiations (render_portal_kernel<mask>), but
+# only the production one, <0>, runs on the main path: the others are
+# launched by tpu_doom_torch/tools/kernelbudget.py alone.
 KERNEL_NAMES = ("player_move_kernel", "render_portal_kernel",
                 "peel_resolve_kernel", "select_rows_kernel",
                 "scatter_live", "gather_cells_kernel", "classify_alpha_kernel",

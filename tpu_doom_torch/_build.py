@@ -7,7 +7,8 @@ package, listed in .gitignore) on first use, and again only when a
 source or the flags change: the library's file name carries a hash of
 both. The library is bound with ctypes; every entry point takes device
 pointers, sizes and the stream, and returns `cudaGetLastError()` after
-its launch.
+its launch (`tdt_smem_optin` launches nothing: it writes a device
+attribute to a host int and returns the CUDA error code).
 
 Flags: `--fmad=false` keeps nvcc from contracting a*b+c into one fused
 multiply-add, so each kernel rounds exactly where its plain PyTorch
@@ -68,6 +69,16 @@ SIGNATURES = {
     # rows, grid, out_z, out_id, B, T_pad, P, P_pad, n_layers, tile_p,
     # chunk_t, stream
     "tdt_depth_peel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # records, words, cam, shear, dxz, sky, tex, hole, cmap, idx, cov,
+    # B, R, W, H, n_words, hc, S1, holeless, p11, n_rows, ablate, zero,
+    # stream
+    "tdt_render_portal_ablated": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                  _I, _P],
+    # idx, tab, out, n, S, iters, grid, variant, stream
+    "tdt_onehot_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # out (int*): the device's opt-in shared memory per block, bytes
+    "tdt_smem_optin": [_P],
 }
 
 
@@ -142,14 +153,27 @@ def _ptxas_log(lib: Path) -> Path:
     return lib.with_suffix(".ptxas.txt")
 
 
+def kernel_name(mangled: str) -> str | None:
+    """'<name>_kernel', or '<name>_kernel<a,b>' for an instantiation of a
+    kernel template over non-negative ints (Itanium mangling 'ILi0EE'),
+    from a mangled entry name; None if it names no kernel of csrc/."""
+    m = re.search(r"([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?", mangled)
+    if not m:
+        return None
+    if m.group(2):
+        return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    return m.group(1)
+
+
 def ptxas_usage(lib: Path) -> list[str]:
     """One line per kernel, '<kernel>: <registers/smem>; <spills>', from
-    the ptxas report that `build` kept beside the library."""
+    the ptxas report that `build` kept beside the library; each
+    instantiation of a kernel template is reported under its own name."""
     out, name, spill = [], None, ""
     for line in _ptxas_log(lib).read_text().splitlines():
-        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)", line)
-        if m:
-            name, spill = m.group(1), ""
+        m = re.search(r"Compiling entry function '([^']*)'", line)
+        if m and kernel_name(m.group(1)):
+            name, spill = kernel_name(m.group(1)), ""
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "Used" in line:

@@ -45,12 +45,15 @@ __device__ __forceinline__ float jmin(float a, float b) {
 // Does record r (channels at rec + c * W) cover image row y? Masked-family
 // records cover only where their texel's alpha bit is set: the bit of
 // texture row y_t in the crossing's packed words wk (word i at wk + i * W).
+// kAlpha = false drops that test (the stage budget's `alpha` ablation,
+// tools/kernelbudget.py); every production kernel takes the default.
+template <bool kAlpha = true>
 __device__ __forceinline__ bool record_hits(const float* rec, int W, int r,
                                             float y, float ndc_y, float cam_y,
                                             float p11, int hc,
                                             const int32_t* wk, int n_words) {
   if (!(y >= rec[0] && y < rec[W])) return false;
-  if (r % kRpc != kMasked || !(rec[13 * W] > 0.5f)) return true;
+  if (!kAlpha || r % kRpc != kMasked || !(rec[13 * W] > 0.5f)) return true;
   const float w_ch = rec[8 * W], t1 = rec[9 * W], t2 = rec[10 * W];
   const float low = rec[11 * W], high = rec[12 * W];
   const float tsy = rec[5 * W], ay = rec[15 * W];
@@ -127,16 +130,23 @@ __device__ __forceinline__ int global_texel(const int8_t* tex,
   return (int)__ldg(tex + lin) + 128;
 }
 
+// Palette index and coverage of one pixel from its colormapped texel v2.
+__device__ __forceinline__ void shade_write(const ShadeAddr& a, float v2,
+                                            bool is_hole, float sky,
+                                            float* out_idx, float* out_cov) {
+  const bool covered = a.covered0 && (a.is_sky || !is_hole);
+  const float val = a.is_sky ? sky : v2;
+  *out_idx = covered ? val : 0.0f;
+  *out_cov = covered ? 1.0f : 0.0f;
+}
+
 // Colormapped palette index and coverage of one pixel.
 __device__ __forceinline__ void shade_store(const ShadeAddr& a, int v1,
                                             bool is_hole,
                                             const int8_t* cmap, float sky,
                                             float* out_idx, float* out_cov) {
   const float v2 = (float)((int)__ldg(cmap + a.crow * 256 + v1) + 128);
-  const bool covered = a.covered0 && (a.is_sky || !is_hole);
-  const float val = a.is_sky ? sky : v2;
-  *out_idx = covered ? val : 0.0f;
-  *out_cov = covered ? 1.0f : 0.0f;
+  shade_write(a, v2, is_hole, sky, out_idx, out_cov);
 }
 
 }  // namespace portal

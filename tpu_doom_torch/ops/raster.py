@@ -15,7 +15,9 @@ memory with columns on adjacent threads (coalesced, and the 8 rows of a
 block share them through L1); the three tables (68 KB + 8.6 KB + 8 KB on
 `:test:`) are read through the read-only cache. Bound: the per-pixel
 walk over up to 40 records; a 256-env frame's records are 210 MB of
-device memory, which the 8 rows of a block re-read from L1.
+device memory, which the 8 rows of a block re-read from L1. The kernel
+is a template over a mask of stages to switch off: B2 is <0>; the stage
+budget (tpu_doom_torch/tools/kernelbudget.py) launches the others.
 
 B3 replaces `raster_pallas.py:peel_resolve_pallas` (kernel
 `_peel_resolve_kernel`). K-layer depth peel over y-sorted triangles with
@@ -79,13 +81,14 @@ NCH = 16
 
 
 def _classify(records, words, cam_y, hc: int, ndc_y, y, p11: float,
-              done_on_kind: bool):
+              done_on_kind: bool, alpha_test: bool = True):
     """First-match span classify (B2's stage 1 and B7): records (B, R,
     16, W), words (B, K, n_words, W), cam_y (B, 1, 1), ndc_y (B, H, 1),
     y (1, H, 1) -> (B, 11, H, W), the covering record's channels [2:13)
     (kind p0 tsx tsy cbase light w t1 t2 low high), zero where none
     covers. Masked-family records cover only where their texel alpha bit
-    is set. A pixel is done after its first covering record, or with
+    is set (anywhere in their rows with `alpha_test=False`, the stage budget's
+    ablation). A pixel is done after its first covering record, or with
     `done_on_kind` (B7's rule) after the first one of non-zero kind."""
     B, R, _, W = records.shape
     H = y.shape[1]
@@ -95,7 +98,7 @@ def _classify(records, words, cam_y, hc: int, ndc_y, y, p11: float,
     for r in range(R):
         rec = records[:, r, :, None, :]  # (B, 16, 1, W)
         hit = ~done & (y >= rec[:, 0]) & (y < rec[:, 1])
-        if r % RECORDS_PER_CROSSING == MASKED_FAMILY:
+        if alpha_test and r % RECORDS_PER_CROSSING == MASKED_FAMILY:
             w_ch, t1, t2 = rec[:, 8], rec[:, 9], rec[:, 10]
             low, high, tsy, ay = rec[:, 11], rec[:, 12], rec[:, 5], rec[:, 15]
             masked = rec[:, 13] > 0.5
@@ -175,8 +178,12 @@ def _global_texel(tex, hole_bytes, lin):
 
 
 def _shade_out(v1, hole, crow, covered0, is_sky, sky, cmap_i8):
-    """(palette index, covered) f32 from the texel, hole flag and row."""
-    v2 = (cmap_i8.reshape(-1).to(torch.int32)[(crow * 256 + v1).long()] + 128).float()
+    """(palette index, covered) f32 from the texel, hole flag and row;
+    cmap_i8 None takes the texel itself (the stage budget's ablation)."""
+    if cmap_i8 is None:
+        v2 = v1.float()
+    else:
+        v2 = (cmap_i8.reshape(-1).to(torch.int32)[(crow * 256 + v1).long()] + 128).float()
     covered = covered0 & (is_sky | ~hole)
     val = torch.where(is_sky, sky, v2)
     return torch.where(covered, val, 0.0), covered.float()
