@@ -8,15 +8,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
   2. build: nvcc builds csrc/*.cu for sm_90a from the checkout (one nvcc
      per source, in parallel).
   3. kernels: each kernel against its plain PyTorch version on the card at
-     main-path shapes, with error ceilings, and both timed, beside its
-     bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
-     whichever is larger) and, where one PyTorch call computes the same
-     function, that call's time. On :test: (B1: 256 envs; B2, then B7 and
-     B8 of the portal_jnp configuration on the same state: 256 envs at
-     320x200, with the chain B7 -> B8 against B2 printed; B3 and B9: the 8
-     verify poses at 320x200, 3 layers); on :texstress: at 320x200 x 256
-     envs after 8 bench ticks, from the port's own walk: B4 at shipped
-     defaults, B6, B5 and B2's per-env mode with
+     main-path shapes, with error ceilings, and both timed (medians of
+     single calls; the kernel also as the median of runs of 10 launches
+     back to back, `ms_b2b`), beside its bound (bytes over 3.35 TB/s or
+     f32 operations over 67 TFLOP/s, whichever is larger; B2's and B8's
+     bytes are those these inputs need, from the plain version's
+     winners) and, where one PyTorch call computes the same function,
+     that call's time. On :test: (B1: 256
+     envs; B2, then B7 and B8 of the portal_jnp configuration on the same
+     state: 256 envs at 320x200, with the chain B7 -> B8 against B2
+     printed; B3 and B9: the 8 verify poses at 320x200, 3 layers); on
+     :texstress: at 320x200 x 256 envs after 8 bench ticks, from the
+     port's own walk: B4 and B2 on the global table (records (256, 120,
+     16, 320)) at shipped defaults, B6, B5 and B2's per-env mode with
      portal_global_segs_max=1024 (all bitwise).
   4. tools: the kernels of the port's two instruments, which no main-path
      segment runs (their launch counts there stay 0). B10
@@ -28,7 +32,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      eight stage-budget variants on the tool's inputs (:test: x 256 envs
      at 320x200, reset, yaws from default_rng(0)), each at 0 px against
      its plain version and `full` bitwise equal to B2's production kernel,
-     each timed, with each stage's share (full - variant) / full.
+     each timed as the median of runs of 10 launches back to back, with
+     each stage's share (full - variant) / full.
   5. goldens: the triangle path (B3) and the jnp path (B9) against
      tests/golden/frames.npz at 160x100, the portal (B2) and portal_jnp
      (B7, B8) paths on the 8 verify poses at 320x200 against
@@ -74,6 +79,7 @@ WARMUP_TICKS, TIMED_TICKS, WINDOWS, FALLBACK_TICKS = 8, 32, 5, 4
 TEX_WAD, TEX_CAP = ":texstress:", 1024  # portal_global_segs_max of the active set
 TEX_WARMUP, TEX_TICKS, TEX_WINDOWS = 4, 8, 3
 TIMING_CALLS = 20
+BACK_TO_BACK = 10  # kernel launches per pair of CUDA events
 PX_CEILING = 16  # per-frame mismatch ceiling of the verify legs (bench.py:90)
 B3_REL_TOL = 1e-6
 
@@ -96,6 +102,10 @@ KERNELS = {
     "scatter_live": dict(
         source="tpu_doom_torch/csrc/scatter_live.cu",
         replaces="tpu_doom/ops/raster_pallas.py:1199"),
+    # B2 on :texstress:'s global table, R = 120 records per column.
+    "render_portal_fused_texstress": dict(
+        source="tpu_doom_torch/csrc/render_portal.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:854"),
     # B2 reading per-env active tables (raster_pallas.py:854, per_env_tex).
     "render_portal_fused_per_env": dict(
         source="tpu_doom_torch/csrc/render_portal.cu",
@@ -154,8 +164,9 @@ def bench_actions(sim, batch):
     )
 
 
-def time_ms(fn, calls=TIMING_CALLS):
-    """Median milliseconds of `calls` calls after two warm-up calls."""
+def time_ms(fn, calls=TIMING_CALLS, per_pair=1):
+    """Median milliseconds per call over `calls` pairs of CUDA events, each
+    pair around `per_pair` calls back to back, after two warm-up calls."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -164,11 +175,20 @@ def time_ms(fn, calls=TIMING_CALLS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per_pair):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per_pair)
     return float(np.median(times))
+
+
+def kernel_ms(fn):
+    """A kernel's (ms, ms_b2b): the median ms of single launches, which
+    includes whatever of the wrapper's host time the device waits for,
+    and the median ms per launch over TIMING_CALLS runs of BACK_TO_BACK
+    launches back to back, which is device time."""
+    return time_ms(fn), time_ms(fn, per_pair=BACK_TO_BACK)
 
 
 def nbytes(*tensors):
@@ -183,15 +203,128 @@ def bound(n_bytes, ops=0.0):
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def record(results, name, err, ms, plain, n_bytes, ops=0.0, library_ms=None):
+def record(results, name, err, ms, ms_b2b, plain, n_bytes, ops=0.0,
+           library_ms=None):
     """Store a kernel's numbers and print its bound and yardstick."""
-    results[name].update(max_abs_err=err, ms=ms, plain_ms=plain,
+    results[name].update(max_abs_err=err, ms=ms, ms_b2b=ms_b2b, plain_ms=plain,
                          library_ms=library_ms, **bound(n_bytes, ops))
     r = results[name]
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"[bound] {name}: {n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> bound"
           f" {r['bound_ms']:.4f} ms by {r['bound_by']}; kernel {ms:.4f} ms"
-          f" ({r['bound_ms'] / ms:.1%} of bound); one PyTorch call: {lib}")
+          f" ({r['bound_ms'] / ms:.1%} of bound), {ms_b2b:.4f} ms back to back"
+          f" ({r['bound_ms'] / ms_b2b:.1%}); one PyTorch call: {lib}")
+
+
+def _distinct(t):
+    return int(torch.unique(t).numel())
+
+
+def _table_bytes(key, lin, crow, v1, hole, textured, tex, hole_bytes):
+    """Bytes of the tables that the textured pixels read, each distinct
+    entry once: the texel at `key` (its address, per env in the per-env
+    mode), the hole byte (global table with holes) and, at pixels that are
+    no hole, the colormap entry."""
+    n = _distinct(key[textured]) * tex.element_size()
+    if tex.dim() == 2 and hole_bytes is not None:
+        n += _distinct((lin >> 3)[textured])
+    return n + _distinct((crow * 256 + v1)[textured & ~hole])
+
+
+def _kinds(kind):
+    """(textured, wall, flat) masks of the classified kind channel."""
+    textured = (kind != 0.0) & (kind != 3.0)
+    wall = (kind == 2.0) | (kind == 4.0)
+    return textured, wall, textured & ~wall
+
+
+@torch.no_grad()
+def portal_bytes(args, kw):
+    """The bytes B2 must move on these inputs, in either table mode (its
+    bound's): both outputs; of the records, per env and column, the span
+    bounds (channels 0-1) of every record up to the one where the
+    column's last row finds its winner (all R where a row finds none), the
+    alpha flag (channel 13) of each masked-family record among them that
+    covers a row still open, and where that flag is set one word and the
+    alpha test's other channels (15, and 5 and 8-12 unless the record wins
+    in the column); once per column, the channels each winner's kind uses
+    (the kind alone for kind 0 and the sky, 6 for a flat, 11 for a wall);
+    the camera and shear; dxz of each column with a flat pixel, the sky
+    image at sky pixels, and each distinct table entry read. The plain
+    walk on the records with channel 2 set to each record's position + 1
+    gives the winners."""
+    from tpu_doom_torch._numerics import f32
+    from tpu_doom_torch.ops.raster import (
+        MASKED_FAMILY,
+        RECORDS_PER_CROSSING,
+        _classify,
+        _global_texel,
+        _ndc_rows,
+        _shade_address,
+    )
+
+    records, words, cam, hc, dxz, _, tex, hole_bytes, _, H, p11, n_rows = args
+    shear = kw["shear"]
+    B, R, _, W = records.shape
+    dev = records.device
+    y, ndc0 = _ndc_rows(H, dev)
+    ndc_y = ndc0 + shear[:, None, None]
+    cam_x, cam_y, cam_z = (cam[:, i, None, None] for i in range(3))
+    marked = records.clone()
+    marked[:, :, 2] = torch.arange(1, R + 1, dtype=torch.float32, device=dev)[None, :, None]
+    win = _classify(marked, words, cam_y, hc, ndc_y, y, f32(p11), False)[:, 0].long() - 1
+    del marked
+    ch = _classify(records, words, cam_y, hc, ndc_y, y, f32(p11), False)
+    n = 2 * win.numel() * 4 + nbytes(cam, shear)
+    open_ = win < 0
+    n += 8 * int((torch.where(open_, R - 1, win).amax(1) + 1).sum())
+    for r in range(MASKED_FAMILY, R, RECORDS_PER_CROSSING):
+        rec = records[:, r]
+        covers = (y >= rec[:, None, 0]) & (y < rec[:, None, 1])
+        tested = (covers & (open_ | (win >= r))).any(1)
+        flagged = tested & (rec[:, 13] > 0.5)
+        n += (4 * int(tested.sum()) + 8 * int(flagged.sum())
+              + 24 * int((flagged & ~(win == r).any(1)).sum()))
+    kind = ch[:, 0]
+    textured, wall, flat = _kinds(kind)
+    used = torch.where(wall, 11, torch.where(textured, 6, 1))
+    column = torch.arange(B * W, device=dev).view(B, 1, W)
+    winners = torch.unique(((column * R + win) * 16 + used)[~open_])
+    n += 4 * int((winners % 16).sum())
+    n += 8 * int(flat.any(1).sum()) + 4 * int((kind == 3.0).sum())
+    S1 = tex.shape[-2]
+    lin, crow, _, _ = _shade_address(ch, ndc_y, dxz[:, 0, None, :], dxz[:, 1, None, :],
+                                     cam_x, cam_y, cam_z, f32(p11), n_rows, S1)
+    if tex.dim() == 3:
+        v = torch.gather(tex.reshape(B, -1).to(torch.int32), 1,
+                         lin.long().reshape(B, -1)).reshape(lin.shape)
+        hole, v1 = v == 256, v.clamp_max(255)
+        key = lin.long() + torch.arange(B, device=dev).view(B, 1, 1) * (S1 * 128)
+    else:
+        v1, hole = _global_texel(tex, hole_bytes, lin)
+        key = lin
+    return n + _table_bytes(key, lin, crow, v1, hole, textured, tex, hole_bytes)
+
+
+@torch.no_grad()
+def shade_bytes(ch, sargs, shear):
+    """The bytes B8 must move on these inputs (its bound's): both outputs;
+    each pixel's kind and the other channels its kind uses (5 for a flat,
+    10 for a wall); dxz at flat pixels and the sky image at sky pixels;
+    ndc_y, the camera and shear; and each distinct table entry read."""
+    from tpu_doom_torch._numerics import f32
+    from tpu_doom_torch.ops.raster import _global_texel, _shade_address
+
+    dxz, ndc_y, _, cam, tex, hole_bytes, _, p11, n_rows = sargs
+    kind = ch[:, 0]
+    textured, wall, flat = _kinds(kind)
+    n = 3 * kind.numel() * 4 + nbytes(ndc_y, cam, shear)
+    n += 40 * int(wall.sum()) + 28 * int(flat.sum()) + 4 * int((kind == 3.0).sum())
+    lin, crow, _, _ = _shade_address(
+        ch, ndc_y + shear[:, None], dxz[:, 0], dxz[:, 1], cam[:, 0, None],
+        cam[:, 1, None], cam[:, 2, None], f32(p11), n_rows, tex.shape[0])
+    v1, hole = _global_texel(tex, hole_bytes, lin)
+    return n + _table_bytes(lin, lin, crow, v1, hole, textured, tex, hole_bytes)
 
 
 def tool_wrappers():
@@ -310,13 +443,13 @@ def phase_kernels(results):
     want = player_move_ref(rows, st8, **kw)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
-    ms = time_ms(lambda: player_move(rows, st8, **kw))
+    ms, b2b = kernel_ms(lambda: player_move(rows, st8, **kw))
     plain = time_ms(lambda: player_move_ref(rows, st8, **kw))
     print(f"[kernel] B1 player_move rows {tuple(rows.shape)}: max_abs_err {err}"
-          f" (ceiling 0); {ms:.4f} ms vs plain {plain:.4f} ms")
+          f" (ceiling 0); {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(err == 0.0, f"B1 disagrees with its plain version: {err}")
     sweeps = pcfg.clip_substeps + 1 + int(pcfg.enable_noclip)
-    record(results, "player_move", err, ms, plain, nbytes(rows, st8, got),
+    record(results, "player_move", err, ms, b2b, plain, nbytes(rows, st8, got),
            rows.shape[0] * sweeps * rows.shape[2] * SWEEP_TRI_OPS)
 
     # B2 on the port's own walk output, 256 envs at 320x200.
@@ -327,16 +460,14 @@ def phase_kernels(results):
     torch.cuda.synchronize()
     mism = int((gi != wi).sum()) + int((gc != wc).sum())
     err = max(max_abs_err(gi, wi), max_abs_err(gc, wc))
-    ms = time_ms(lambda: render_portal_fused(*args, **kw))
+    ms, b2b = kernel_ms(lambda: render_portal_fused(*args, **kw))
     plain = time_ms(lambda: render_portal_fused_ref(*args, **kw))
     print(f"[kernel] B2 render_portal_fused records {tuple(args[0].shape)}: "
           f"{mism} mismatched idx/cov px (ceiling 0), max_abs_err {err};"
-          f" {ms:.4f} ms vs plain {plain:.4f} ms")
+          f" {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(mism == 0, f"B2 disagrees with its plain version on {mism} px")
-    tables = [t for t in args[6:9] if t is not None]
-    record(results, "render_portal_fused", err, ms, plain,
-           nbytes(*args[:3], *args[4:6], *tables, gi, gc),
-           gi.numel() * SHADE_PIXEL_OPS)
+    record(results, "render_portal_fused", err, ms, b2b, plain,
+           portal_bytes(args, kw), gi.numel() * SHADE_PIXEL_OPS)
     del args, gc, wi, wc
     phase_kernels_oracle(results, state, gi)
     del gi
@@ -359,12 +490,12 @@ def phase_kernels(results):
     fin_ok = torch.equal(torch.isfinite(g), fin) and torch.equal(g[~fin], w[~fin])
     rel = float(((g - w).abs() / w.abs().clamp_min(1e-30))[fin].max())
     err = max_abs_err(got, want)
-    ms = time_ms(lambda: peel_resolve(trows, tattrs, grid, yb, n_layers, **pk))
+    ms, b2b = kernel_ms(lambda: peel_resolve(trows, tattrs, grid, yb, n_layers, **pk))
     plain = time_ms(lambda: peel_resolve_ref(trows, tattrs, grid, yb, n_layers, **pk))
     print(f"[kernel] B3 peel_resolve rows {tuple(trows.shape)} P={grid.shape[1]}"
           f" K={n_layers}: has/pass/transparent equal {cat_ok}, float max rel err"
-          f" {rel} (ceiling {B3_REL_TOL}), max_abs_err {err}; {ms:.4f} ms vs"
-          f" plain {plain:.4f} ms")
+          f" {rel} (ceiling {B3_REL_TOL}), max_abs_err {err}; {ms:.4f} ms"
+          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(cat_ok and fin_ok and rel <= B3_REL_TOL,
             "B3 disagrees with its plain version")
     from tpu_doom_torch.ops.raster import _pad_peel_inputs
@@ -375,7 +506,7 @@ def phase_kernels(results):
     overlap = ((cb[..., 0, None] <= pyt.amax(dim=1) + 1.0)
                & (cb[..., 1, None] >= pyt.amin(dim=1) - 1.0))  # chunks x tiles
     tests = int(overlap.sum()) * pk["tile_p"] * pk["chunk_t"] * n_layers
-    record(results, "peel_resolve", err, ms, plain,
+    record(results, "peel_resolve", err, ms, b2b, plain,
            nbytes(trows, tattrs, grid, yb, got), tests * PEEL_TEST_OPS)
 
     # B9 on the same 8 poses: the "jnp" path's unsorted 16-column rows.
@@ -388,7 +519,7 @@ def phase_kernels(results):
     torch.cuda.synchronize()
     same = torch.equal(ids, idr) and bitwise_equal(z, zr)
     err = max_abs_err(z, zr)
-    ms = time_ms(lambda: depth_peel(rows16, grid, n_layers, **pk))
+    ms, b2b = kernel_ms(lambda: depth_peel(rows16, grid, n_layers, **pk))
     plain = time_ms(lambda: depth_peel_ref(rows16, grid, n_layers, **pk))
     # For the record: B9's z against B3's channel 0 (the same winners: B3's
     # y-sorted rows carry the draw-order ids B9 has as positions).
@@ -396,9 +527,9 @@ def phase_kernels(results):
     print(f"[kernel] B9 depth_peel rows {tuple(rows16.shape)} P={grid.shape[1]}"
           f" K={n_layers}: ids equal and z bitwise {same} (ceiling 0),"
           f" max_abs_err {err}; z vs B3's channel 0 max_abs_err {b3z};"
-          f" {ms:.4f} ms vs plain {plain:.4f} ms")
+          f" {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(same, "B9 disagrees with its plain version")
-    record(results, "depth_peel", err, ms, plain, nbytes(rows16, grid, z, ids),
+    record(results, "depth_peel", err, ms, b2b, plain, nbytes(rows16, grid, z, ids),
            rows16.shape[0] * rows16.shape[1] * grid.shape[1] * n_layers
            * PEEL_TEST_OPS)
 
@@ -425,13 +556,13 @@ def phase_kernels_oracle(results, state, b2_idx):
     same = bitwise_equal(ch, want)
     err = max_abs_err(ch, want)
     del want
-    ms = time_ms(lambda: classify_alpha(*cargs, shear=shear))
+    ms, b2b = kernel_ms(lambda: classify_alpha(*cargs, shear=shear))
     plain = time_ms(lambda: classify_alpha_ref(*cargs, shear=shear))
     print(f"[kernel] B7 classify_alpha records {tuple(cargs[0].shape)} ->"
           f" {tuple(ch.shape)}: bitwise equal {same} (ceiling 0), max_abs_err"
-          f" {err}; {ms:.4f} ms vs plain {plain:.4f} ms")
+          f" {err}; {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(same, "B7 disagrees with its plain version")
-    record(results, "classify_alpha", err, ms, plain,
+    record(results, "classify_alpha", err, ms, b2b, plain,
            nbytes(*cargs[:3], shear, ch))
 
     B = ch.shape[0]
@@ -443,17 +574,17 @@ def phase_kernels_oracle(results, state, b2_idx):
     mism = int((gi != wi).sum()) + int((gc != wc).sum())
     err = max(max_abs_err(gi, wi), max_abs_err(gc, wc))
     del wi, wc
-    ms = time_ms(lambda: shade_portal(ch, *sargs, shear=shear))
+    ms, b2b = kernel_ms(lambda: shade_portal(ch, *sargs, shear=shear))
     plain = time_ms(lambda: shade_portal_ref(ch, *sargs, shear=shear))
     chain = int((gi.reshape(b2_idx.shape) != b2_idx).sum())
     print(f"[kernel] B8 shade_portal ch {tuple(ch.shape)} table"
           f" {tuple(sargs[4].shape)} hole {tuple(sargs[5].shape)}: {mism}"
           f" mismatched idx/cov px (ceiling 0), max_abs_err {err}; {ms:.4f} ms"
-          f" vs plain {plain:.4f} ms; the chain B7 -> B8 differs from B2 on"
-          f" {chain} px of this zero-pitch state")
+          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms; the chain"
+          f" B7 -> B8 differs from B2 on {chain} px of this zero-pitch state")
     require(mism == 0, f"B8 disagrees with its plain version on {mism} px")
-    record(results, "shade_portal", err, ms, plain,
-           nbytes(ch, *sargs[:7], shear, gi, gc), gi.numel() * SHADE_PIXEL_OPS)
+    record(results, "shade_portal", err, ms, b2b, plain,
+           shade_bytes(ch, sargs, shear), gi.numel() * SHADE_PIXEL_OPS)
 
 
 @contextlib.contextmanager
@@ -506,25 +637,43 @@ def phase_kernels_texstress(results):
     state = texstress_state()
     sim = make_sim(wad_file=TEX_WAD)
     with captured(P, "select_rows") as calls:
-        P.fused_inputs(sim.portal_scene(), sim.scene, sim.config, W_MAIN, H_MAIN, state)
+        args, kw, _ = P.fused_inputs(sim.portal_scene(), sim.scene, sim.config,
+                                     W_MAIN, H_MAIN, state)
     require(len(calls) == 1, f"the :texstress: walk called B4 {len(calls)} times, not once")
     idx, tab = calls[0]
     got, want = select_rows(idx, tab), select_rows_ref(idx, tab)
     torch.cuda.synchronize()
     same = bitwise_equal(got, want)
     err = max_abs_err(got, want)
-    ms = time_ms(lambda: select_rows(idx, tab))
+    ms, b2b = kernel_ms(lambda: select_rows(idx, tab))
     plain = time_ms(lambda: select_rows_ref(idx, tab))
     print(f"[kernel] B4 select_rows idx {tuple(idx.shape)} table {tuple(tab.shape)}"
           f" -> {tuple(got.shape)}: bitwise equal {same} (ceiling 0), max_abs_err"
-          f" {err}; {ms:.4f} ms vs plain {plain:.4f} ms")
+          f" {err}; {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(same, "B4 disagrees with its plain version")
     C = tab.shape[2]
     lib = time_ms(lambda: torch.gather(
         tab.transpose(1, 2), 2, idx.long()[:, None, :].expand(-1, C, -1)))
-    record(results, "select_rows", err, ms, plain, nbytes(idx, tab, got),
+    record(results, "select_rows", err, ms, b2b, plain, nbytes(idx, tab, got),
            library_ms=lib)
-    del calls, idx, tab, got, want, sim
+    del calls, idx, tab, got, want
+
+    require(args[6].dim() == 2, "B2 is not in its global-table mode at shipped defaults")
+    gi, gc_ = render_portal_fused(*args, **kw)
+    wi, wc = render_portal_fused_ref(*args, **kw)
+    torch.cuda.synchronize()
+    mism = int((gi != wi).sum()) + int((gc_ != wc).sum())
+    err = max(max_abs_err(gi, wi), max_abs_err(gc_, wc))
+    ms, b2b = kernel_ms(lambda: render_portal_fused(*args, **kw))
+    plain = time_ms(lambda: render_portal_fused_ref(*args, **kw))
+    print(f"[kernel] B2 render_portal_fused {TEX_WAD} global table"
+          f" {tuple(args[6].shape)} records {tuple(args[0].shape)}: {mism} mismatched"
+          f" idx/cov px (ceiling 0), max_abs_err {err}; {ms:.4f} ms"
+          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
+    require(mism == 0, f"B2 on {TEX_WAD} disagrees with its plain version on {mism} px")
+    record(results, "render_portal_fused_texstress", err, ms, b2b, plain,
+           portal_bytes(args, kw), gi.numel() * SHADE_PIXEL_OPS)
+    del args, kw, gi, gc_, wi, wc, sim
 
     sim = make_sim(wad_file=TEX_WAD, portal_global_segs_max=TEX_CAP)
     require(P.active_segs(sim.portal_scene(), sim.config) > 0,
@@ -538,17 +687,18 @@ def phase_kernels_texstress(results):
     torch.cuda.synchronize()
     same = bitwise_equal(got, want)
     err = max_abs_err(got, want)
-    ms = time_ms(lambda: scatter_live(sidx, live, n_rows))
+    ms, b2b = kernel_ms(lambda: scatter_live(sidx, live, n_rows))
     plain = time_ms(lambda: scatter_live_ref(sidx, live, n_rows))
     print(f"[kernel] B6 scatter_live idx {tuple(sidx.shape)} -> ({sidx.shape[0]},"
           f" {n_rows}): bitwise equal {same} (ceiling 0), max_abs_err {err},"
-          f" {int(want.sum())} live crossings; {ms:.4f} ms vs plain {plain:.4f} ms")
+          f" {int(want.sum())} live crossings; {ms:.4f} ms"
+          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(same, "B6 disagrees with its plain version")
     ok = (sidx >= 0) & (sidx < n_rows)
     sl_idx, sl_live = torch.where(ok, sidx, 0).long(), torch.where(ok, live, 0.0)
     zeros = torch.zeros((sidx.shape[0], n_rows), dtype=torch.float32, device=sidx.device)
     lib = time_ms(lambda: torch.scatter_add(zeros, 1, sl_idx, sl_live))
-    record(results, "scatter_live", err, ms, plain, nbytes(sidx, live, got),
+    record(results, "scatter_live", err, ms, b2b, plain, nbytes(sidx, live, got),
            library_ms=lib)
 
     meta, tex_full, act = gc[0]
@@ -556,16 +706,16 @@ def phase_kernels_texstress(results):
     torch.cuda.synchronize()
     same = torch.equal(got, want)
     err = max_abs_err(got, want)
-    ms = time_ms(lambda: gather_cells(meta, tex_full, act))
+    ms, b2b = kernel_ms(lambda: gather_cells(meta, tex_full, act))
     plain = time_ms(lambda: gather_cells_ref(meta, tex_full, act))
     print(f"[kernel] B5 gather_cells meta {tuple(meta.shape)} table"
           f" {tuple(tex_full.shape)} -> {tuple(got.shape)}: equal {same} (ceiling 0),"
           f" max_abs_err {err}, {int(meta[..., 2].sum()) * 8} rows copied,"
-          f" {int(overflow.sum())} envs over the active budget; {ms:.4f} ms vs"
-          f" plain {plain:.4f} ms")
+          f" {int(overflow.sum())} envs over the active budget; {ms:.4f} ms"
+          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(same, "B5 disagrees with its plain version")
     copied = int(meta[..., 2].sum()) * 8 * 128 * tex_full.element_size()
-    record(results, "gather_cells", err, ms, plain, nbytes(meta, got) + copied)
+    record(results, "gather_cells", err, ms, b2b, plain, nbytes(meta, got) + copied)
     del sl, gc, sidx, live, meta, tex_full, got, want
 
     require(args[6].dim() == 3, "B2 is not in its per-env mode on the active set")
@@ -574,14 +724,15 @@ def phase_kernels_texstress(results):
     torch.cuda.synchronize()
     mism = int((gi != wi).sum()) + int((gc_ != wc).sum())
     err = max(max_abs_err(gi, wi), max_abs_err(gc_, wc))
-    ms = time_ms(lambda: render_portal_fused(*args, **kw))
+    ms, b2b = kernel_ms(lambda: render_portal_fused(*args, **kw))
     plain = time_ms(lambda: render_portal_fused_ref(*args, **kw))
     print(f"[kernel] B2 render_portal_fused per-env tables {tuple(args[6].shape)}"
           f" records {tuple(args[0].shape)}: {mism} mismatched idx/cov px"
-          f" (ceiling 0), max_abs_err {err}; {ms:.4f} ms vs plain {plain:.4f} ms")
+          f" (ceiling 0), max_abs_err {err}; {ms:.4f} ms"
+          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(mism == 0, f"B2 per-env disagrees with its plain version on {mism} px")
-    record(results, "render_portal_fused_per_env", err, ms, plain,
-           nbytes(*args[:3], *args[4:7], args[8], gi, gc_), gi.numel() * SHADE_PIXEL_OPS)
+    record(results, "render_portal_fused_per_env", err, ms, b2b, plain,
+           portal_bytes(args, kw), gi.numel() * SHADE_PIXEL_OPS)
 
 
 def phase_tools(results):
@@ -622,7 +773,9 @@ def phase_tools(results):
         print(f"[tool] B10 at {label}: {times}; plain {plain:.4f} ms; one"
               f" torch.take: {'none at iters > 1' if lib is None else f'{lib:.4f} ms'}")
         if iters == 1:
-            record(results, "onehot_lookup", 0.0, ms["ldg"], plain, n_bytes, ops,
+            b2b = time_ms(lambda: OH.lookup(idx, tab, iters, grid, "ldg"),
+                          per_pair=BACK_TO_BACK)
+            record(results, "onehot_lookup", 0.0, ms["ldg"], b2b, plain, n_bytes, ops,
                    library_ms=lib)
         else:
             b = bound(n_bytes, ops)
@@ -633,7 +786,8 @@ def phase_tools(results):
     # B11 on the TPU tool's inputs.
     args, kw = KB.budget_inputs(B_MAIN, W_MAIN, H_MAIN, "cuda")
     pi, pc = render_portal_fused(*args, **kw)
-    ms = {"prod": time_ms(lambda: render_portal_fused(*args, **kw))}
+    b2b = BACK_TO_BACK
+    ms = {"prod": time_ms(lambda: render_portal_fused(*args, **kw), per_pair=b2b)}
     plain, err = {}, {}
     for name, stages in KB.ABLATIONS.items():
         gi, gc = KB.render_portal_ablated(*args, **kw, ablate=stages)
@@ -642,13 +796,15 @@ def phase_tools(results):
         mism = int((gi != wi).sum()) + int((gc != wc).sum())
         err[name] = max(max_abs_err(gi, wi), max_abs_err(gc, wc))
         same_b2 = bitwise_equal(gi, pi) and bitwise_equal(gc, pc)
-        ms[name] = time_ms(lambda s=stages: KB.render_portal_ablated(*args, **kw, ablate=s))
+        ms[name] = time_ms(lambda s=stages: KB.render_portal_ablated(*args, **kw, ablate=s),
+                           per_pair=b2b)
         plain[name] = time_ms(lambda s=stages: KB.render_portal_ablated_ref(
             *args, **kw, ablate=s), calls=3)
         print(f"[tool] B11 render_portal_ablated {name} records {tuple(args[0].shape)}:"
               f" {mism} mismatched idx/cov px (ceiling 0), max_abs_err {err[name]};"
-              f" bitwise equal to B2 {same_b2}; {ms[name]:.4f} ms vs plain"
-              f" {plain[name]:.4f} ms (median of 3)")
+              f" bitwise equal to B2 {same_b2}; {ms[name]:.4f} ms (median of"
+              f" {TIMING_CALLS} runs of {b2b} back to back) vs plain {plain[name]:.4f}"
+              " ms (median of 3)")
         require(mism == 0, f"B11 {name} disagrees with its plain version on {mism} px")
         require(same_b2 or name != "full", "B11 full is not bitwise B2's production output")
     print(f"[tool] B11 stage budget, :test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs: prod"
@@ -656,9 +812,9 @@ def phase_tools(results):
           + ", ".join(f"{n} {(ms['full'] - ms[n]) / ms['full']:+.4f}"
                       for n in KB.ABLATIONS if n != "full")
           + "; no_flatten: not applicable on this card")
-    tables = [t for t in args[6:9] if t is not None]
-    record(results, "render_portal_ablated", err["full"], ms["full"], plain["full"],
-           nbytes(*args[:3], *args[4:6], *tables, pi, pc), pi.numel() * SHADE_PIXEL_OPS)
+    single = time_ms(lambda: KB.render_portal_ablated(*args, **kw))
+    record(results, "render_portal_ablated", err["full"], single, ms["full"], plain["full"],
+           portal_bytes(args, kw), pi.numel() * SHADE_PIXEL_OPS)
 
 
 GOLDEN_SCENARIOS = {
@@ -887,6 +1043,10 @@ def phase_main(results):
             TEX_TICKS, needed)
         del sim, state
 
+    for seg, c in segments.items():  # B2's global-table launches on :texstress:
+        c["render_portal_fused_texstress"] = (
+            c["render_portal_fused"] - c["render_portal_fused_per_env"]
+            if seg.startswith("texstress") else 0)
     totals = {k: sum(c[k] for c in segments.values()) for k in results}
     for name, r in results.items():
         require(name in TOOL_KERNELS or totals[name] > 0,
@@ -907,7 +1067,7 @@ def main():
     phase_goldens()
     segments = phase_main(results)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "ms", "ms_b2b", "plain_ms", "bound_ms", "bound_by", "library_ms",
              *(f"{seg}_launches" for seg in segments))
     print(json.dumps({"kernels": [{k: results[n][k] for k in order}
                                   for n in KERNELS]}))

@@ -192,3 +192,138 @@ def test_render_portal_ablated_matches_plain_versions_on_card(cuda_device):
     pi, pc = render_portal_fused(*args, **kw)
     gi, gc = KB.render_portal_ablated(*args, **kw)
     assert torch.equal(gi.view(torch.int32), pi.view(torch.int32)) and torch.equal(gc, pc)
+
+
+# ---------------------------------------------------------------------------
+# B4 and B2 as redesigned for Hopper: shapes off the main path's, bitwise.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 13, 74, 100])
+@pytest.mark.parametrize("N", [50, 300, 301])
+def test_select_rows_shapes_on_card(cuda_device, C, N):
+    """On the card: B4 bitwise equal to its plain version with N below one
+    tile (50), not a multiple of the tile (300) and not of 4 either (301),
+    at C in {1, 13, 74, 100}, with indices out of range on both sides and
+    -0.0 entries (which come out +0.0)."""
+    from tpu_doom_torch.ops import select_rows, select_rows_ref
+
+    g = torch.Generator().manual_seed(1000 * C + N)
+    tab = torch.randn((3, 37, C), generator=g)
+    tab[tab.abs() < 0.3] = -0.0
+    idx = torch.randint(-3, 40, (3, N), generator=g, dtype=torch.int32)
+    tab, idx = tab.to(cuda_device), idx.to(cuda_device)
+    got, want = select_rows(idx, tab), select_rows_ref(idx, tab)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((tab.view(torch.int32) == -2**31).any())
+    assert not bool((got.view(torch.int32) == -2**31).any())
+
+
+@pytest.mark.cuda
+def test_select_rows_refuses_what_its_tile_cannot_hold(cuda_device):
+    """On the card: a C whose tile exceeds the card's opt-in shared memory
+    is refused by the kernel's opt-in, through the wrapper as a raise; the
+    refusal launches nothing and leaves no error behind for the next
+    launch."""
+    from tpu_doom_torch._build import check, load
+    from tpu_doom_torch.ops import select_rows, select_rows_ref
+
+    idx = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+    tab = torch.ones((1, 4, 480), device=cuda_device)
+    with pytest.raises(RuntimeError, match="select_rows launch failed: cudaError"):
+        select_rows(idx, tab)
+    out = torch.zeros((1, 480, 8), device=cuda_device)
+    err = load().tdt_select_rows(idx.data_ptr(), tab.data_ptr(), out.data_ptr(), 1, 8,
+                                 4, 480, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        check(err, "select_rows")
+    torch.cuda.synchronize()
+    assert not bool(out.any())
+    small = tab[:, :, :74].contiguous()
+    assert torch.equal(select_rows(idx, small), select_rows_ref(idx, small))
+
+
+GRATE_POS = [-3.5, 1.0, -9.0]  # a view of :test:'s masked grate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wad, width, height, extra, R, per_env", [
+    (":test:", 64, 40, {}, 40, False),
+    (":test:", 72, 45, {}, 40, False),
+    (":test:", 72, 45, dict(portal_compact_crossings=1), 5, False),
+    (":texstress:10x16", 72, 45, {}, 120, False),
+    (":texstress:10x16", 64, 40, dict(portal_global_segs_max=1024), 120, True),
+    (":texstress:10x16", 72, 45, dict(portal_global_segs_max=1024), 120, True),
+])
+def test_render_portal_fused_shapes_on_card(cuda_device, wad, width, height, extra, R,
+                                            per_env):
+    """On the card: B2 bitwise equal to its plain version in both table
+    modes, at 64x40 and at 72x45 (W not a multiple of the 32-column strip,
+    H not of the 8-row group), at R = 5, 40 and 120 records per column,
+    with masked records on :test: (one env at the grate) and pitched envs."""
+    from tpu_doom_torch.ops import render_portal_fused, render_portal_fused_ref
+    from tpu_doom_torch.ops.raster import MASKED_FAMILY, RECORDS_PER_CROSSING
+    from tpu_doom_torch.render.portal import fused_inputs
+
+    sim = TorchSim(GameConfig(wad_file=wad, width=width, height=height, batch_size=4,
+                              raster_backend="portal", **extra), cuda_device)
+    s = sim.reset()
+    s = s._replace(yaw=torch.tensor([0.0, 1.5, 3.0, 4.5], device=cuda_device),
+                   pitch=torch.tensor([0.0, 0.3, 0.0, -0.2], device=cuda_device))
+    if wad == ":test:":
+        pos = s.pos.clone()
+        pos[0] = torch.tensor(GRATE_POS, device=cuda_device)
+        s = s._replace(pos=pos)
+    args, kw, _ = fused_inputs(sim.portal_scene(), sim.scene, sim.config, width, height, s)
+    assert args[0].shape[1] == R and (args[6].dim() == 3) == per_env
+    if wad == ":test:":
+        assert bool((args[0][:, MASKED_FAMILY::RECORDS_PER_CROSSING, 13] > 0.5).any())
+    gi, gc = render_portal_fused(*args, **kw)
+    wi, wc = render_portal_fused_ref(*args, **kw)
+    assert torch.equal(gi.view(torch.int32), wi.view(torch.int32))
+    assert torch.equal(gc.view(torch.int32), wc.view(torch.int32))
+    assert float(gc.mean()) > 0.5
+
+
+@pytest.mark.cuda
+def test_fmod_exact_is_fmodf_on_card(cuda_device):
+    """On the card: B2's remainder (csrc/portal_shade.cuh fmod_exact) is
+    fmodf bit for bit over texel coordinates near every multiple of the
+    texture sizes up to quotients past its fast range (2^20), over random
+    values of every magnitude and sign, and over the edge values (zeros,
+    subnormals, FLT_MIN, FLT_MAX, 2^126, infinities, NaN)."""
+    import numpy as np
+
+    from tpu_doom_torch._build import check, load
+
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    sizes = np.concatenate([np.arange(1, 257), [0.5, 1 / 3, 7.25, 100.0, 1024.0, 4096.0],
+                            rng.uniform(1e-3, 2e3, 100)]).astype(f32)
+    k = np.unique(np.concatenate([np.arange(-64, 65), rng.integers(-2**21, 2**21, 100),
+                                  [2**20 - 1, 2**20, 2**20 + 1, -2**20]]))
+    near = (k[None, :] * sizes[:, None].astype(np.float64)).astype(f32)
+    xs = [np.nextafter(near, f32(np.inf) * s).ravel() for s in (-1, 1)] + [near.ravel()]
+    xs += [np.nextafter(xs[0], -f32(np.inf)), np.nextafter(xs[1], f32(np.inf))]
+    x_near = np.concatenate(xs)
+    y_near = np.tile(np.repeat(sizes, k.size), 5)
+    sign = rng.choice([-1.0, 1.0], size=(2, 2_000_000))
+    mag = 10.0 ** rng.uniform(-45, 38.5, size=(2, 2_000_000))
+    x_rand, y_rand = (sign * mag).astype(f32)
+    x_walk = rng.uniform(-2e6, 2e6, 2_000_000).astype(f32)
+    y_walk = rng.choice(np.concatenate([[8, 16, 32, 64, 128, 256],
+                                        rng.uniform(0.5, 300, 64)]).astype(f32), x_walk.size)
+    tiny, fmin, fmax = np.float32(1e-45), np.finfo(f32).tiny, np.finfo(f32).max
+    edge = np.array([0.0, -0.0, tiny, -tiny, fmin, -fmin, 1.0, -1.0, 3.0, fmax, -fmax,
+                     2.0**126, 2.0**127, 2.0**20, np.inf, -np.inf, np.nan], f32)
+    x_edge, y_edge = (a.ravel() for a in np.meshgrid(edge, edge))
+    x = np.concatenate([x_near, -x_near, x_rand, x_walk, x_edge]).astype(f32)
+    y = np.concatenate([y_near, -y_near, y_rand, y_walk, y_edge]).astype(f32)
+    xt, yt = torch.as_tensor(x, device=cuda_device), torch.as_tensor(y, device=cuda_device)
+    fast, ref = torch.empty_like(xt), torch.empty_like(xt)
+    check(load().tdt_fmod_check(xt.data_ptr(), yt.data_ptr(), fast.data_ptr(),
+                                ref.data_ptr(), x.size,
+                                torch.cuda.current_stream().cuda_stream), "fmod_check")
+    bad = (fast.view(torch.int32) != ref.view(torch.int32)).nonzero().flatten()[:5].cpu()
+    assert bad.numel() == 0, [(x[i], y[i], float(fast[i]), float(ref[i])) for i in bad]

@@ -1,0 +1,166 @@
+"""chip_smoke.py's byte counts for the bounds of B2 and B8, against a
+count made pixel by pixel on the CPU.
+
+The bound of a kernel whose reads depend on the data counts what these
+inputs need: `portal_bytes` (B2, both table modes) and `shade_bytes`
+(B8) count it with whole-tensor operations from the plain version's
+walk. Here the winners come another way (the first prefix of the records
+that covers a pixel) and each env, column and pixel is counted in a
+Python loop. Tolerance: exact (integers).
+"""
+
+import importlib.util
+import os
+
+import pytest
+import torch
+
+from tpu_doom_torch._numerics import f32
+from tpu_doom_torch.models import DoomSim
+from tpu_doom_torch.ops.raster import (
+    MASKED_FAMILY,
+    RECORDS_PER_CROSSING,
+    _classify,
+    _ndc_rows,
+    _shade_address,
+    classify_alpha_ref,
+)
+from tpu_doom_torch.render.portal import fused_inputs, oracle_inputs
+from tpu_doom_torch.utils.config import GameConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+W, H = 24, 16
+GRATE_POS = [-3.5, 1.0, -9.0]  # a view of :test:'s masked grate
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _state(wad, **extra):
+    sim = DoomSim(GameConfig(wad_file=wad, width=W, height=H, batch_size=2,
+                             raster_backend="portal", **extra), "cpu")
+    s = sim.reset()._replace(yaw=torch.tensor([0.0, 2.0]))
+    if wad == ":test:":
+        pos = s.pos.clone()
+        pos[0] = torch.tensor(GRATE_POS)
+        s = s._replace(pos=pos)
+    return sim, s
+
+
+def _table_entry(tex, hole_bytes, b, lin):
+    """(texel key, texel 0..255, hole byte index or None, is hole)."""
+    if tex.dim() == 3:
+        v = int(tex[b].reshape(-1)[lin])
+        return (b, lin), min(v, 255), None, v == 256
+    v1 = int(tex.reshape(-1)[lin]) + 128
+    if hole_bytes is None:
+        return lin, v1, None, False
+    hbyte = int(hole_bytes.reshape(-1)[lin >> 3]) + 128
+    return lin, v1, lin >> 3, (hbyte >> (lin & 7)) & 1 == 1
+
+
+def _portal_bytes_by_pixel(args, kw):
+    records, words, cam, hc, dxz, _, tex, hole_bytes, _, height, p11, n_rows = args
+    shear = kw["shear"]
+    B, R, _, width = records.shape
+    y, ndc0 = _ndc_rows(height, "cpu")
+    ndc_y = ndc0 + shear[:, None, None]
+    cam_y = cam[:, 1, None, None]
+    covering = records.clone()
+    covering[:, :, 2] = 1.0  # any covered pixel classifies to kind 1
+    win = torch.full((B, height, width), -1)
+    for r in range(R - 1, -1, -1):
+        prefix = _classify(covering[:, :r + 1], words, cam_y, hc, ndc_y, y, f32(p11), False)
+        win[prefix[:, 0] == 1.0] = r
+    ch = _classify(records, words, cam_y, hc, ndc_y, y, f32(p11), False)
+    lin, crow, _, _ = _shade_address(
+        ch, ndc_y, dxz[:, 0, None, :], dxz[:, 1, None, :], cam[:, 0, None, None], cam_y,
+        cam[:, 2, None, None], f32(p11), n_rows, tex.shape[-2])
+    total = 8 * B * height * width + 4 * (cam.numel() + shear.numel())
+    texels, holes, cmap = set(), set(), set()
+    for b in range(B):
+        for c in range(width):
+            w = win[b, :, c].tolist()
+            last = R - 1 if min(w) < 0 else max(w)
+            total += 8 * (last + 1)
+            for r in range(MASKED_FAMILY, last + 1, RECORDS_PER_CROSSING):
+                y0, y1 = float(records[b, r, 0, c]), float(records[b, r, 1, c])
+                if any(y0 <= h + 0.5 < y1 and (w[h] < 0 or w[h] >= r) for h in range(height)):
+                    total += 4
+                    if float(records[b, r, 13, c]) > 0.5:
+                        total += 8 + (0 if r in w else 24)
+            for r in {x for x in w if x >= 0}:
+                kind = float(records[b, r, 2, c])
+                total += 4 * (11 if kind in (2.0, 4.0) else 1 if kind in (0.0, 3.0) else 6)
+            flat_column = False
+            for h in range(height):
+                kind = float(ch[b, 0, h, c])
+                total += 4 * (kind == 3.0)
+                if kind in (0.0, 3.0):
+                    continue
+                flat_column |= kind not in (2.0, 4.0)
+                key, v1, hbyte, hole = _table_entry(tex, hole_bytes, b, int(lin[b, h, c]))
+                texels.add(key)
+                if hbyte is not None:
+                    holes.add(hbyte)
+                if not hole:
+                    cmap.add((int(crow[b, h, c]), v1))
+            total += 8 * flat_column
+    return total + len(texels) * tex.element_size() + len(holes) + len(cmap)
+
+
+@pytest.mark.parametrize("wad, extra, per_env", [
+    (":test:", {}, False),
+    (":texstress:10x16", {}, False),
+    (":texstress:10x16", dict(portal_global_segs_max=1024), True),
+])
+def test_portal_bytes_counts_each_column(wad, extra, per_env):
+    """B2's bound bytes equal the count made column by column, in both
+    table modes, with masked records flagged on :test: (env 0 at the
+    grate); the count lies between the outputs and every input once."""
+    cs = _chip_smoke()
+    sim, s = _state(wad, **extra)
+    args, kw, _ = fused_inputs(sim.portal_scene(), sim.scene, sim.config, W, H, s)
+    assert (args[6].dim() == 3) == per_env
+    if wad == ":test:":
+        assert bool((args[0][:, MASKED_FAMILY::RECORDS_PER_CROSSING, 13] > 0.5).any())
+    got = cs.portal_bytes(args, kw)
+    assert got == _portal_bytes_by_pixel(args, kw)
+    whole = cs.nbytes(*[a for a in args if isinstance(a, torch.Tensor)], kw["shear"])
+    assert 8 * 2 * W * H < got < whole + 8 * 2 * W * H
+
+
+def test_shade_bytes_counts_each_pixel():
+    """B8's bound bytes equal the count made pixel by pixel on the
+    `portal_jnp` configuration's inputs."""
+    cs = _chip_smoke()
+    sim, s = _state(":test:")
+    cargs, sargs, shear, _ = oracle_inputs(sim.portal_scene(), sim.scene, sim.config,
+                                           W, H, s)
+    ch = classify_alpha_ref(*cargs, shear=shear).reshape(2, 11, -1)
+    dxz, ndc_y, _, cam, tex, hole_bytes, _, p11, n_rows = sargs
+    lin, crow, _, _ = _shade_address(
+        ch, ndc_y + shear[:, None], dxz[:, 0], dxz[:, 1], cam[:, 0, None], cam[:, 1, None],
+        cam[:, 2, None], f32(p11), n_rows, tex.shape[0])
+    B, _, P = ch.shape
+    total = 12 * B * P + 4 * (ndc_y.numel() + cam.numel() + shear.numel())
+    texels, holes, cmap = set(), set(), set()
+    for b in range(B):
+        for p in range(P):
+            kind = float(ch[b, 0, p])
+            total += 4 * (kind == 3.0)
+            if kind in (0.0, 3.0):
+                continue
+            total += 40 if kind in (2.0, 4.0) else 28
+            key, v1, hbyte, hole = _table_entry(tex, hole_bytes, b, int(lin[b, p]))
+            texels.add(key)
+            holes.add(hbyte)
+            if not hole:
+                cmap.add((int(crow[b, p]), v1))
+    want = total + len(texels) + len(holes) + len(cmap)
+    assert cs.shade_bytes(ch, sargs, shear) == want

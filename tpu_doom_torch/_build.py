@@ -75,6 +75,8 @@ SIGNATURES = {
     "tdt_render_portal_ablated": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                                   _I, _P],
+    # x, y, fast, ref, n, stream (B2's remainder against fmodf; tests only)
+    "tdt_fmod_check": [_P, _P, _P, _P, _I, _P],
     # idx, tab, out, n, S, iters, grid, variant, stream
     "tdt_onehot_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # out (int*): the device's opt-in shared memory per block, bytes

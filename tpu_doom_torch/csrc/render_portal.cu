@@ -5,12 +5,40 @@
 // (tpu_doom_torch/ops/raster.py:render_portal_fused_ref) operation for
 // operation, built with --fmad=false.
 //
-// Design: one thread per pixel; a block is 32 columns x 8 rows of one env.
-// Each thread walks the env's span records in order and stops at the first
-// one covering its row (masked-family records only where their texel
-// alpha bit is set), then shades with direct loads from the compact texel,
-// hole and colormap tables. Record reads put columns on adjacent threads
-// (coalesced); the 8 rows of a block re-read them from L1.
+// Bound on the H100: bytes, on paper (the whole record tensor read once:
+// 210 MB of a 256-env :test: frame). The kernel reads much less of it: a
+// pixel's walk needs only the span bounds of the records before its own,
+// and its shade one record's channels. What costs is the walk, one test
+// per record until the first that covers, and the shade's arithmetic.
+//
+// Design: a block owns a strip of 32 columns of one env over a band of up
+// to 96 rows (H split into equal bands of whole 12-row groups), 32 x G
+// threads (G <= 8 row groups), each thread one column and 12 contiguous
+// rows of it.
+//  1. The block stages, once, every record's span over the strip as the
+//     rows [lo, hi) it covers (portal_shade.cuh span_rows, exact), packed
+//     with the record's alpha-test flag in one word of shared memory, and
+//     the band's per-row ndc. So a record's bounds come from device memory
+//     once per band and column, not once per pixel.
+//  2. Each thread walks the records for its 12 rows at once: one shared
+//     load and a few integer operations give the mask of its pending rows
+//     a record covers; a masked-family record's alpha test (the only
+//     per-row float work of the walk) runs on those rows alone. The walk
+//     ends when the last of its rows has found its record.
+//  3. Each row is shaded in turn. A row whose record is the previous
+//     row's keeps its channels, and on a wall its texel column and
+//     colormap row, which do not depend on the row; a pixel reads and
+//     computes only what its kind uses (nothing covers: no channel but
+//     the kind; the sky: the sky image; walls: the texture row; flats:
+//     the flat address and distance; portal_shade.cuh), and texel reads
+//     go through the read-only cache.
+// Lanes are the strip's 32 columns: a warp shades one row of 32 columns
+// at a time, which keeps its stores coalesced and its lanes on rows of
+// one kind more often than a warp down a column would (that layout took
+// 1.19-1.22x as long on the H100; PERF.md). Twelve rows a thread share
+// each record test among more pixels, and five resident blocks of 256
+// threads per SM (kMinBlocks, which caps registers at 51) keep enough
+// warps in flight to hide the latency of the shade's divisions and loads.
 //
 // Two texel-table modes, as the TPU kernel's `per_env_tex` flag:
 //   global  (per_env = 0): one (S1, 128) int8 table of texel - 128 shared
@@ -39,8 +67,17 @@ namespace {
 
 using namespace portal;
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
+constexpr int kCols = 32;      // columns per block, one per lane
+constexpr int kMaxGroups = 8;  // row groups per block, one warp each
+constexpr int kRows = 12;      // contiguous rows per thread
+constexpr int kMinBlocks = 5;  // resident blocks per SM: <= 51 registers
+constexpr int kStaticSmem = 48 * 1024;
+
+// A record's span over one column in shared memory: rows [lo, hi) in
+// kRowBits bits each, and the alpha-test flag.
+constexpr int kRowBits = 15;
+constexpr uint32_t kRowMask = (1u << kRowBits) - 1u;
+constexpr uint32_t kAlphaFlag = 1u << 31;
 
 // Stages an ablation mask can switch off.
 constexpr int kNoClassify = 1;   // every classified channel 0: nothing covered
@@ -52,7 +89,8 @@ constexpr int kNoShadeMath = 32; // lin = trunc(cbase), crow = trunc(light), cla
 constexpr int kNoLookups = kNoTex | kNoHole | kNoCmap;
 
 template <int kAblate>
-__global__ void render_portal_kernel(
+__global__ void __launch_bounds__(kCols * kMaxGroups, kMinBlocks)
+render_portal_kernel(
     const float* __restrict__ records, const int32_t* __restrict__ words,
     const float* __restrict__ cam, const float* __restrict__ shear,
     const float* __restrict__ dxz, const float* __restrict__ sky,
@@ -61,79 +99,154 @@ __global__ void render_portal_kernel(
     float* __restrict__ out_cov, int R, int W, int H, int n_words, int hc,
     int S1, int holeless, int per_env, int tex_stride, float p11,
     int n_rows, int zero) {
-  const int col = blockIdx.x * kBlockX + threadIdx.x;
-  const int row = blockIdx.y * kBlockY + threadIdx.y;
+  extern __shared__ uint32_t s_span[];  // R x kCols
+  float* s_ndc = reinterpret_cast<float*>(s_span + R * kCols);  // band rows
+  const int groups = blockDim.y;
+  const int band = groups * kRows;
+  const int col0 = blockIdx.x * kCols;
+  const int row0 = blockIdx.y * band;
   const int b = blockIdx.z;
-  if (col >= W || row >= H) return;
-  const int K = R / kRpc;
-  const float y = (float)row + 0.5f;
+  const int tid = threadIdx.y * kCols + threadIdx.x;
+  const int n_threads = kCols * groups;
+  const float* rec_env = records + (size_t)b * R * kNch * W;
+
+  // --- 1. stage the strip's spans and the band's ndc ---------------------
+  for (int i = tid; i < R * kCols; i += n_threads) {
+    const int r = i / kCols;
+    const int col = col0 + i % kCols;
+    uint32_t span = 0;  // rows [0, 0): none
+    if (!(kAblate & kNoClassify) && col < W) {
+      const float* rec = rec_env + (size_t)r * kNch * W + col;
+      int lo, hi;
+      span_rows(rec[0], rec[W], H, &lo, &hi);
+      span = (uint32_t)lo | ((uint32_t)hi << kRowBits);
+      if (!(kAblate & kNoAlpha) && alpha_tested(rec, W, r)) span |= kAlphaFlag;
+    }
+    s_span[i] = span;
+  }
+  const float shear_b = shear[b];
+  for (int i = tid; i < band; i += n_threads) {
+    const float y = (float)(row0 + i) + 0.5f;
+    s_ndc[i] = 1.0f - 2.0f * y / (float)H + shear_b;
+  }
+  __syncthreads();
+
+  const int lane_col = threadIdx.x;
+  const int col = col0 + lane_col;
+  const int rbase = row0 + threadIdx.y * kRows;
+  const int n_mine = col < W ? min(max(H - rbase, 0), kRows) : 0;
+  if (n_mine == 0) return;
   const float cam_x = cam[b * 3 + 0];
   const float cam_y = cam[b * 3 + 1];
   const float cam_z = cam[b * 3 + 2];
-  const float ndc_y = 1.0f - 2.0f * y / (float)H + shear[b];
-  const float* rec_env = records + (size_t)b * R * kNch * W + col;
+  rec_env += col;
 
-  // --- classify: first matching record -----------------------------------
-  int win = -1;
+  // --- 2. classify: the first record covering each of my rows ------------
+  int win[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) win[i] = -1;
   if constexpr (!(kAblate & kNoClassify)) {
-    for (int r = 0; r < R; ++r) {
-      const int32_t* wk = words + ((size_t)b * K + r / kRpc) * n_words * W + col;
-      if (record_hits<!(kAblate & kNoAlpha)>(rec_env + (size_t)r * kNch * W, W,
-                                             r, y, ndc_y, cam_y, p11, hc, wk,
-                                             n_words)) {
-        win = r;
-        break;
+    const int32_t* words_env = words + (size_t)b * (R / kRpc) * n_words * W + col;
+    uint32_t pending = (1u << n_mine) - 1u;
+    for (int r = 0; r < R && pending; ++r) {
+      const uint32_t sp = s_span[r * kCols + lane_col];
+      const int a = max((int)(sp & kRowMask) - rbase, 0);
+      const int e = min((int)((sp >> kRowBits) & kRowMask) - rbase, kRows);
+      if (a >= e) continue;
+      uint32_t hit = ((1u << e) - (1u << a)) & pending;
+      if (!hit) continue;
+      if (sp & kAlphaFlag) {
+        const MaskedRec m = load_masked(rec_env + (size_t)r * kNch * W, W);
+        const int32_t* wk = words_env + (size_t)(r / kRpc) * n_words * W;
+        for (uint32_t t = hit; t; t &= t - 1u) {
+          const int i = __ffs(t) - 1;
+          if (!alpha_hit(m, s_ndc[rbase - row0 + i], cam_y, p11, hc, wk,
+                         n_words, W))
+            hit &= ~(1u << i);
+        }
       }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        if ((hit >> i) & 1u) win[i] = r;
+      pending &= ~hit;
     }
   }
 
-  // --- shade -------------------------------------------------------------
+  // --- 3. shade my rows in turn ------------------------------------------
+  float dx = 0.0f, dz = 0.0f;
+  if constexpr (!(kAblate & kNoShadeMath)) {
+    dx = dxz[((size_t)b * 2 + 0) * W + col];
+    dz = dxz[((size_t)b * 2 + 1) * W + col];
+  }
   float ch[kOutCh];
-  if (win >= 0) {
-    const float* rec = rec_env + (size_t)win * kNch * W;
+  WallTerms wt{0.0f, 0};  // ch's, when it is a wall kind
+  int cur = -2;           // the record whose kind ch[0] holds
+  bool loaded = false;    // and ch[1..10] and wt too
+#pragma unroll 1
+  for (int i = 0; i < n_mine; ++i) {
+    const int w = win[0];
 #pragma unroll
-    for (int c = 0; c < kOutCh; ++c) ch[c] = rec[(2 + c) * W];
-  } else {
-#pragma unroll
-    for (int c = 0; c < kOutCh; ++c)
-      ch[c] = (kAblate & kNoClassify) ? (float)zero : 0.0f;
-  }
-  ShadeAddr a;
-  if constexpr (kAblate & kNoShadeMath) {
-    a = ShadeAddr{min(max(f2i(ch[4]), 0), S1 * 128 - 1),
-                  min(max(f2i(ch[5]), 0), n_rows - 1), ch[0] != 0.0f,
-                  ch[0] == 3.0f};
-  } else {
-    const float dx = dxz[((size_t)b * 2 + 0) * W + col];
-    const float dz = dxz[((size_t)b * 2 + 1) * W + col];
-    a = shade_address(ch, ndc_y, dx, dz, cam_x, cam_y, cam_z, p11, S1,
-                      n_rows);
-  }
-  int v1;
-  bool is_hole;
-  if (per_env) {
-    const int16_t* tb = (const int16_t*)tex + (size_t)b * tex_stride;
-    const int v = (int)__ldg(tb + a.lin);
-    is_hole = v == 256;
-    v1 = min(v, 255);
-  } else if constexpr (!(kAblate & (kNoTex | kNoHole))) {
-    v1 = global_texel((const int8_t*)tex, hole, holeless, a.lin, &is_hole);
-  } else {
-    is_hole = false;
-    if (!(kAblate & kNoHole) && !holeless) {
-      const int hbyte = (int)__ldg(hole + (a.lin >> 3)) + 128;
-      is_hole = ((hbyte >> (a.lin & 7)) & 1) == 1;
+    for (int j = 0; j + 1 < kRows; ++j) win[j] = win[j + 1];
+    const float* rec = rec_env + (size_t)max(w, 0) * kNch * W;
+    if (w != cur) {
+      cur = w;
+      loaded = false;
+      ch[0] = w >= 0 ? rec[2 * W] : ((kAblate & kNoClassify) ? (float)zero : 0.0f);
     }
-    v1 = (kAblate & kNoTex) ? 128 + a.lin * zero
-                            : (int)__ldg((const int8_t*)tex + a.lin) + 128;
-  }
-  const size_t o = ((size_t)b * H + row) * W + col;
-  const float sky_o = a.is_sky ? sky[o] : 0.0f;
-  if constexpr (kAblate & kNoCmap) {
-    shade_write(a, (float)(v1 + a.crow * zero), is_hole, sky_o, out_idx + o,
-                out_cov + o);
-  } else {
-    shade_store(a, v1, is_hole, cmap, sky_o, out_idx + o, out_cov + o);
+    const int row = rbase + i;
+    const size_t o = ((size_t)b * H + row) * W + col;
+    // With the walk switched off every pixel still takes the textured
+    // path, on its zero channels, so that the variant removes the walk
+    // and keeps the shade.
+    if (!(kAblate & kNoClassify) && !reads_texel(ch[0])) {
+      shade_untextured(ch[0], sky + o, out_idx + o, out_cov + o);
+      continue;
+    }
+    if (!loaded) {
+#pragma unroll
+      for (int c = 1; c < kOutCh; ++c)
+        ch[c] = (kAblate & kNoClassify) ? (float)zero : rec[(2 + c) * W];
+      loaded = true;
+      if (!(kAblate & kNoShadeMath) && wall_like(ch[0])) wt = wall_terms(ch, n_rows);
+    }
+    ShadeAddr a;
+    if constexpr (kAblate & kNoShadeMath) {
+      a = ShadeAddr{min(max(f2i(ch[4]), 0), S1 * 128 - 1),
+                    min(max(f2i(ch[5]), 0), n_rows - 1)};
+    } else if (wall_like(ch[0])) {
+      a = wall_address(ch, wt, s_ndc[row - row0], cam_y, p11, S1);
+    } else {
+      a = flat_address(ch, s_ndc[row - row0], dx, dz, cam_x, cam_y, cam_z, p11,
+                       S1, n_rows);
+    }
+    int v1;
+    bool is_hole;
+    if (per_env) {
+      const int16_t* tb = (const int16_t*)tex + (size_t)b * tex_stride;
+      const int v = (int)__ldg(tb + a.lin);
+      is_hole = v == 256;
+      v1 = min(v, 255);
+    } else if constexpr (!(kAblate & (kNoTex | kNoHole))) {
+      v1 = global_texel((const int8_t*)tex, hole, holeless, a.lin, &is_hole);
+    } else {
+      is_hole = false;
+      if (!(kAblate & kNoHole) && !holeless) {
+        const int hbyte = (int)__ldg(hole + (a.lin >> 3)) + 128;
+        is_hole = ((hbyte >> (a.lin & 7)) & 1) == 1;
+      }
+      v1 = (kAblate & kNoTex) ? 128 + a.lin * zero
+                              : (int)__ldg((const int8_t*)tex + a.lin) + 128;
+    }
+    const float v2 = (kAblate & kNoCmap) ? (float)(v1 + a.crow * zero)
+                                         : colormapped(a, v1, cmap);
+    if constexpr (kAblate & kNoClassify) {
+      // Kind 0 everywhere: the plain version's (0, 0), which v2 and the
+      // hole flag reach through `zero` so that nvcc keeps their work.
+      out_idx[o] = v2 * (float)zero;
+      out_cov[o] = (float)((int)is_hole * zero);
+    } else {
+      shade_write(v2, is_hole, out_idx + o, out_cov + o);
+    }
   }
 }
 
@@ -144,15 +257,46 @@ int launch(const void* records, const void* words, const void* cam,
            void* out_cov, int B, int R, int W, int H, int n_words, int hc,
            int S1, int holeless, int per_env, int tex_stride, float p11,
            int n_rows, int zero, void* stream) {
-  dim3 block(kBlockX, kBlockY);
-  dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY, B);
-  render_portal_kernel<kAblate><<<grid, block, 0, (cudaStream_t)stream>>>(
+  if (H < 1 || H > (int)kRowMask) return (int)cudaErrorInvalidValue;
+  // Equal bands of whole row groups, at most kMaxGroups groups each.
+  const int per_band = kMaxGroups * kRows;
+  const int n_bands = (H + per_band - 1) / per_band;
+  const int groups = ((H + n_bands - 1) / n_bands + kRows - 1) / kRows;
+  const int band = groups * kRows;
+  const size_t smem = ((size_t)R * kCols + band) * sizeof(uint32_t);
+  if (smem > kStaticSmem) {
+    // Above 48 KB only with the opt-in; a card that refuses it fails the
+    // call here, and nothing is launched. The refusal is also the runtime's
+    // last error, which is cleared so that no later launch reports it.
+    const cudaError_t err = cudaFuncSetAttribute(
+        render_portal_kernel<kAblate>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+  }
+  dim3 block(kCols, groups);
+  dim3 grid((W + kCols - 1) / kCols, (H + band - 1) / band, B);
+  render_portal_kernel<kAblate><<<grid, block, smem, (cudaStream_t)stream>>>(
       (const float*)records, (const int32_t*)words, (const float*)cam,
       (const float*)shear, (const float*)dxz, (const float*)sky,
       tex, (const int8_t*)hole, (const int8_t*)cmap, (float*)out_idx,
       (float*)out_cov, R, W, H, n_words, hc, S1, holeless, per_env,
       tex_stride, p11, n_rows, zero);
   return (int)cudaGetLastError();
+}
+
+// fmod_exact against fmodf, element by element (the card test of
+// portal_shade.cuh's remainder).
+__global__ void fmod_check_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ y,
+                                  float* __restrict__ fast,
+                                  float* __restrict__ ref, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fast[i] = fmod_exact(x[i], y[i]);
+  ref[i] = fmodf(x[i], y[i]);
 }
 
 }  // namespace
@@ -195,4 +339,12 @@ extern "C" int tdt_render_portal_ablated(
       return (int)cudaErrorInvalidValue;
   }
 #undef TDT_ABLATED
+}
+
+extern "C" int tdt_fmod_check(const void* x, const void* y, void* fast,
+                              void* ref, int n, void* stream) {
+  if (n <= 0) return 0;
+  fmod_check_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)y, (float*)fast, (float*)ref, n);
+  return (int)cudaGetLastError();
 }

@@ -13,7 +13,9 @@
 // 131 MB (~0.31 ms at 3.35 TB/s). Design: one thread per pixel, 256 pixels
 // of one env per block, every plane read and written along pixels
 // (coalesced); the three tables (85 KB on :test:) are read through the
-// read-only cache, where they stay.
+// read-only cache, where they stay. A pixel reads the channels and tables
+// its kind uses (portal_shade.cuh): the kind alone where nothing covers
+// it, the kind and the sky image on the sky.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,9 +39,16 @@ __global__ void shade_portal_kernel(
   const int b = blockIdx.y;
   if (p >= P) return;
   const float* chb = ch + (size_t)b * kOutCh * P + p;
+  const size_t o = (size_t)b * P + p;
+  const float kind = chb[0];
+  if (!reads_texel(kind)) {
+    shade_untextured(kind, sky + o, out_idx + o, out_cov + o);
+    return;
+  }
   float c[kOutCh];
+  c[0] = kind;
 #pragma unroll
-  for (int k = 0; k < kOutCh; ++k) c[k] = chb[(size_t)k * P];
+  for (int k = 1; k < kOutCh; ++k) c[k] = chb[(size_t)k * P];
   const float ndc = ndc_y[p] + shear[b];
   const float dx = dxz[(size_t)b * 2 * P + p];
   const float dz = dxz[((size_t)b * 2 + 1) * P + p];
@@ -48,9 +57,7 @@ __global__ void shade_portal_kernel(
                                     n_rows);
   bool is_hole;
   const int v1 = global_texel(tex, hole, 0, a.lin, &is_hole);
-  const size_t o = (size_t)b * P + p;
-  shade_store(a, v1, is_hole, cmap, a.is_sky ? sky[o] : 0.0f, out_idx + o,
-              out_cov + o);
+  shade_store(a, v1, is_hole, cmap, out_idx + o, out_cov + o);
 }
 
 }  // namespace

@@ -9,14 +9,15 @@ the colormap row from light and distance, and the per-env sky image.
 The TPU kernel's one-hot MXU lookups, SMEM gating plans, per-tile hole
 gate and 128-lane padding only skip work or serve the TPU's layout; here
 they are indexed loads, which changes no output.
-CUDA design (csrc/render_portal.cu): one thread per pixel, 32x8 pixel
-blocks over (column tile, row tile, env); records are read from global
-memory with columns on adjacent threads (coalesced, and the 8 rows of a
-block share them through L1); the three tables (68 KB + 8.6 KB + 8 KB on
-`:test:`) are read through the read-only cache. Bound: the per-pixel
-walk over up to 40 records; a 256-env frame's records are 210 MB of
-device memory, which the 8 rows of a block re-read from L1. The kernel
-is a template over a mask of stages to switch off: B2 is <0>; the stage
+CUDA design (csrc/render_portal.cu): a block owns 32 columns of one env
+over a band of up to 96 rows; it stages every record's span over those
+columns once, as exact integer row ranges in shared memory, and each
+thread walks the records for 12 contiguous rows of one column at once,
+then shades them in turn, computing and reading only what each pixel's
+kind uses; the three tables (68 KB + 8.6 KB + 8 KB on `:test:`) are read
+through the read-only cache. Bound: the walk (one test per record until
+the first that covers) and the shade arithmetic. The kernel is a
+template over a mask of stages to switch off: B2 is <0>; the stage
 budget (tpu_doom_torch/tools/kernelbudget.py) launches the others.
 
 B3 replaces `raster_pallas.py:peel_resolve_pallas` (kernel
@@ -35,11 +36,14 @@ B4, B5 and B6 serve the big-level walk (render/portal.py):
 B4 `select_rows` replaces `raster_pallas.py:select_rows_pallas`, the exact
 row select of the per-seg attribute table at every crossing (the TPU's
 3-way bf16 split and in-VMEM one-hot are a direct load here, csrc/
-select_rows.cu); B6 `scatter_live` replaces `scatter_live_pallas`, the
-per-seg count of live crossings (a shared-memory histogram, csrc/
-scatter_live.cu); B5 `gather_cells` replaces `gather_cells_pallas`, the
-copy of each env's visible texture cells into its active texel table
-(one block per cell and env, 16-byte copies, csrc/gather_cells.cu).
+select_rows.cu: each index read once, the tile's rows staged in
+swizzled shared memory, each output plane written as 512-byte runs of
+16-byte streaming stores); B6 `scatter_live` replaces
+`scatter_live_pallas`, the per-seg count of live crossings (a
+shared-memory histogram, csrc/scatter_live.cu); B5 `gather_cells`
+replaces `gather_cells_pallas`, the copy of each env's visible texture
+cells into its active texel table (one block per cell and env, 16-byte
+copies, csrc/gather_cells.cu).
 B2 reads those per-env tables in its per-env mode.
 
 B7, B8 and B9 serve the JAX package's reference configurations, which
@@ -638,10 +642,6 @@ depth_peel.launches = 0
 # B4: exact row select (the big-level walk's attribute select).
 # ---------------------------------------------------------------------------
 
-SELECT_TILE_N = 64  # csrc/select_rows.cu kTileN
-SMEM_LIMIT = 48 * 1024  # static shared-memory limit of a launch
-
-
 def select_rows_ref(idx, tab):
     """Plain version of B4: idx (B, N) i32, tab (B, S, C) f32 -> (B, C, N)
     f32 with out[b, :, n] = tab[b, idx[b, n], :] (idx clamped to [0, S),
@@ -654,7 +654,9 @@ def select_rows_ref(idx, tab):
 
 
 def select_rows(idx, tab):
-    """Kernel B4 for CUDA tensors, its plain version for CPU tensors."""
+    """Kernel B4 for CUDA tensors, its plain version for CPU tensors. A C
+    whose tile the card's shared memory cannot hold fails the launch,
+    which raises."""
     if idx.device.type == "cpu":
         return select_rows_ref(idx, tab)
     if idx.device.type != "cuda":
@@ -663,8 +665,6 @@ def select_rows(idx, tab):
     if tab.dim() != 3 or tab.shape[0] != B or tab.shape[1] < 1:
         raise ValueError("select_rows: bad shapes")
     S, C = tab.shape[1], tab.shape[2]
-    if SELECT_TILE_N * (C + 1) * 4 > SMEM_LIMIT:
-        raise ValueError(f"select_rows: {C} columns exceed the kernel's tile")
     if (idx.dtype, tab.dtype) != (torch.int32, torch.float32):
         raise ValueError("select_rows: bad dtypes")
     idx, tab = idx.contiguous(), tab.contiguous()

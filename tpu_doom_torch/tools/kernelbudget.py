@@ -3,9 +3,9 @@
     python -m tpu_doom_torch.tools.kernelbudget [variant ...] [--device cpu]
 
 Variants: prod full no_classify no_alpha no_tex no_hole no_cmap
-no_lookups no_shade_math no_flatten (default: all). Environment:
-BENCH_BATCH (256), BENCH_W (320), BENCH_H (200), BENCH_REPS (20 timed
-calls).
+no_lookups no_shade_math no_flatten (default: all).
+Environment: BENCH_BATCH (256), BENCH_W (320), BENCH_H (200), BENCH_REPS
+(20 timed runs of BACK_TO_BACK launches).
 
 Replaces tools/kernelbudget.py (`_ablated_call`, :201, kernel
 `_ablated_kernel`), which timed a measurement copy of the TPU's fused
@@ -15,7 +15,8 @@ csrc/render_portal.cu is a template over a mask of stages, production
 launches <0>, and `render_portal_ablated` launches the instantiation of
 one of the masks below (B2's global-table mode). Each stage, as the TPU
 tool defines it:
-  classify    every classified channel is 0: kind 0, nothing covered;
+  classify    every classified channel is 0: kind 0, nothing covered
+              (the walk alone is off: every pixel is still shaded);
   alpha       masked-family records hit without the texel alpha test;
   tex         the texel v1 = 128;
   hole        no holes;
@@ -23,17 +24,18 @@ tool defines it:
   lookups     tex + hole + cmap;
   shade_math  lin = clip(trunc(cbase), 0, S1 * 128 - 1), crow =
               clip(trunc(light), 0, n_rows - 1); kind, sky, covered stay.
-`flatten` switched off the TPU kernel's row -> lane relayout; B2 runs one
-thread per pixel with no relayout, so `no_flatten` has no counterpart.
-`full` is the production kernel launched through the ablation entry;
-`prod` is `ops.render_portal_fused`.
+`flatten` switched off the TPU kernel's row -> lane relayout; B2 needs no
+relayout, so `no_flatten` has no counterpart. `full` is the production
+kernel launched through the ablation entry; `prod` is
+`ops.render_portal_fused`.
 
 Inputs, as the TPU tool's: `:test:` at 320x200 x 256 envs with
 clip_substeps=4, reset, yaws from default_rng(0).uniform(0, 6.28, B), the
 port's own walk and sky (`render.portal.fused_inputs`). Each variant is
-the median of BENCH_REPS calls over all envs after 2 warm-ups (CUDA
-events on the card), printed as ms per batch, then each stage's share
-(full - variant) / full.
+timed as BENCH_REPS runs of BACK_TO_BACK launches between two CUDA events
+on the card (single calls on the host clock on the CPU), after 2
+warm-ups; the median run over its launches is printed as ms per batch,
+then each stage's share (full - variant) / full.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ ABLATIONS = {
 # Stage -> its bit in the kernel's mask (csrc/render_portal.cu kNo*).
 STAGE_BITS = dict(classify=1, alpha=2, tex=4, hole=8, cmap=16, shade_math=32)
 VARIANTS = ("prod", *ABLATIONS)
+BACK_TO_BACK = 10  # launches per pair of events
 NOT_APPLICABLE = {"no_flatten": "not applicable on this card"}
 
 
@@ -200,26 +203,30 @@ def variant_fn(name: str, args, kw):
     return lambda: render_portal_ablated(*args, **kw, ablate=ABLATIONS[name])
 
 
-def median_ms(fn, device, calls: int, warmup: int = 2) -> float:
-    """Median ms of `calls` calls after `warmup`: CUDA events on the card,
-    the host clock on the CPU."""
+def median_ms(fn, device, runs: int, per_run: int = BACK_TO_BACK,
+              warmup: int = 2) -> float:
+    """Median over `runs` runs of `per_run` calls back to back of the ms
+    per call, after `warmup` calls: CUDA events around each run on the
+    card, the host clock on the CPU."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(calls):
+    for _ in range(runs):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(per_run):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / per_run)
         else:
             t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(per_run):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / per_run)
     return float(np.median(times))
 
 
@@ -242,18 +249,20 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     b2_args, b2_kw = budget_inputs(batch, width, height, dev)
+    per_run = BACK_TO_BACK if dev.type == "cuda" else 1  # the CPU checks the tool only
     print(f"[kernelbudget] :test: {width}x{height} x {batch} envs on"
-          f" {device_label(dev)}; median of {reps} calls after 2 warm-ups", flush=True)
+          f" {device_label(dev)}; median of {reps} runs of {per_run} calls"
+          " back to back, after 2 warm-ups", flush=True)
     times = {}
     for name in names:
         if name in NOT_APPLICABLE:
             print(f"{name:>14}: {NOT_APPLICABLE[name]}", flush=True)
             continue
-        times[name] = median_ms(variant_fn(name, b2_args, b2_kw), dev, reps)
+        times[name] = median_ms(variant_fn(name, b2_args, b2_kw), dev, reps, per_run)
         print(f"{name:>14}: {times[name]:8.4f} ms/batch (B={batch})", flush=True)
     if "full" in times:
         for name, ms in times.items():
-            if name not in ("full", "prod"):
+            if name in ABLATIONS and name != "full":
                 print(f"{name:>14}: share (full - variant) / full"
                       f" {(times['full'] - ms) / times['full']:+.4f}", flush=True)
     return 0
