@@ -13,22 +13,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
      back to back, `ms_b2b`), beside its bound (bytes over 3.35 TB/s or
      f32 operations over 67 TFLOP/s, whichever is larger; B2's and B8's
      bytes are those these inputs need, from the plain version's
-     winners) and, where one PyTorch call computes the same function,
-     that call's time. On :test: (B1: 256
+     winners; B1's operations the sweeps these inputs need, up to each
+     env's first clip substep that is not blocked) and, where one PyTorch
+     call computes the same function, that call's time (single and back
+     to back). On :test: (B1: 256
      envs; B2, then B7 and B8 of the portal_jnp configuration on the same
      state: 256 envs at 320x200, with the chain B7 -> B8 against B2
      printed; B3 and B9: the 8 verify poses at 320x200, 3 layers); on
      :texstress: at 320x200 x 256 envs after 8 bench ticks, from the
      port's own walk: B4 and B2 on the global table (records (256, 120,
      16, 320)) at shipped defaults, B6, B5 and B2's per-env mode with
-     portal_global_segs_max=1024 (all bitwise).
+     portal_global_segs_max=1024 (all bitwise); B1 on :texstress:'s rows
+     (bitwise, with their M).
   4. tools: the kernels of the port's two instruments, which no main-path
      segment runs (their launch counts there stay 0). B10
      (tools/onehotbench.py): ldg, smem and copy bitwise against the plain
      version at the TPU tool's defaults (S, n, iters, grid) = (534, 3072,
-     16, 64), which are launch-bound, and at the main path's volume, one
-     lookup per pixel of a 256-env 320x200 frame (n = 16,384,000, iters
-     = grid = 1), beside one torch.take. B11 (tools/kernelbudget.py): B2's
+     16, 64), which are launch-bound, at a ragged n = 3073, and at the
+     main path's volume, one lookup per pixel of a 256-env 320x200 frame
+     (n = 16,384,000, iters = grid = 1), beside one torch.take, each timed
+     single and back to back. B11 (tools/kernelbudget.py): B2's
      eight stage-budget variants on the tool's inputs (:test: x 256 envs
      at 320x200, reset, yaws from default_rng(0)), each at 0 px against
      its plain version and `full` bitwise equal to B2's production kernel,
@@ -204,16 +208,65 @@ def bound(n_bytes, ops=0.0):
 
 
 def record(results, name, err, ms, ms_b2b, plain, n_bytes, ops=0.0,
-           library_ms=None):
+           library_ms=None, library_ms_b2b=None):
     """Store a kernel's numbers and print its bound and yardstick."""
     results[name].update(max_abs_err=err, ms=ms, ms_b2b=ms_b2b, plain_ms=plain,
-                         library_ms=library_ms, **bound(n_bytes, ops))
+                         library_ms=library_ms, library_ms_b2b=library_ms_b2b,
+                         **bound(n_bytes, ops))
     r = results[name]
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    if library_ms_b2b is not None:
+        lib += f" ({library_ms_b2b:.4f} back to back)"
     print(f"[bound] {name}: {n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> bound"
           f" {r['bound_ms']:.4f} ms by {r['bound_by']}; kernel {ms:.4f} ms"
           f" ({r['bound_ms'] / ms:.1%} of bound), {ms_b2b:.4f} ms back to back"
           f" ({r['bound_ms'] / ms_b2b:.1%}); one PyTorch call: {lib}")
+
+
+@torch.no_grad()
+def clip_substeps_run(rows, st8, radius, dt, substeps):
+    """The clip substeps B1 runs per env on these inputs -> (B,) int64:
+    each env's substeps up to and including its first that is not blocked
+    (all `substeps` while it stays blocked). The plain version's substep
+    loop (ops/collision.py:player_move_ref), counting the substeps before
+    `done`."""
+    from tpu_doom_torch._numerics import f32, rdiv
+    from tpu_doom_torch.ops.collision import INF, _sweep
+
+    comp = tuple(rows[:, i] for i in range(12))
+    mask = rows[:, 12] > 0.5
+    radius, dt = f32(radius), f32(dt)
+    cpx, cpy, cpz, cvx, cvy, cvz = (st8[:, k:k + 1] for k in range(6))
+    time_left = torch.zeros_like(cpx) + dt
+    done = torch.zeros_like(cpx, dtype=torch.bool)
+    runs = torch.zeros_like(cpx, dtype=torch.int64)
+    for _ in range(substeps):
+        runs += (~done).long()
+        dx, dy, dz = cvx * time_left, cvy * time_left, cvz * time_left
+        ct, cnx, cny, cnz = _sweep(comp, mask, cpx, cpy, cpz, dx, dy, dz, radius)
+        dmag = torch.sqrt(dx * dx + dy * dy + dz * dz)
+        adjusted = ct - rdiv(0.001, torch.where(dmag > 0.0, dmag, 1.0))
+        blocked = (ct < INF) & (adjusted < 1.0) & ~done
+        tcl = torch.clamp(ct, 0.0, 1.0)
+        adv = torch.where(blocked, adjusted, 1.0)
+        cpx = torch.where(done, cpx, cpx + dx * adv)
+        cpy = torch.where(done, cpy, cpy + dy * adv)
+        cpz = torch.where(done, cpz, cpz + dz * adv)
+        ndv = cnx * cvx + cny * cvy + cnz * cvz
+        cvx = torch.where(blocked, cvx - cnx * ndv, cvx)
+        cvy = torch.where(blocked, cvy - cny * ndv, cvy)
+        cvz = torch.where(blocked, cvz - cnz * ndv, cvz)
+        time_left = torch.where(blocked, time_left * (1.0 - tcl), time_left)
+        done = done | ~blocked
+    return runs[:, 0]
+
+
+def player_move_sweeps(rows, st8, radius, dt, substeps, enable_noclip):
+    """The sweeps B1 must run on these inputs, summed over envs: per env
+    the ground probe, the noclip probe when it is on, and the clip
+    substeps up to and including the first that is not blocked."""
+    runs = clip_substeps_run(rows, st8, radius, dt, substeps)
+    return int(runs.sum()) + rows.shape[0] * (1 + int(bool(enable_noclip)))
 
 
 def _distinct(t):
@@ -448,9 +501,16 @@ def phase_kernels(results):
     print(f"[kernel] B1 player_move rows {tuple(rows.shape)}: max_abs_err {err}"
           f" (ceiling 0); {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(err == 0.0, f"B1 disagrees with its plain version: {err}")
-    sweeps = pcfg.clip_substeps + 1 + int(pcfg.enable_noclip)
-    record(results, "player_move", err, ms, b2b, plain, nbytes(rows, st8, got),
-           rows.shape[0] * sweeps * rows.shape[2] * SWEEP_TRI_OPS)
+    sweeps = player_move_sweeps(rows, st8, pcfg.radius, sim.config.timestep,
+                                pcfg.clip_substeps, pcfg.enable_noclip)
+    most = rows.shape[0] * (pcfg.clip_substeps + 1 + int(pcfg.enable_noclip))
+    b1_bytes = nbytes(rows, st8, got)
+    print(f"[bound] B1 player_move: {sweeps} sweeps these inputs need (of {most}"
+          f" without the early exit) x M = {rows.shape[2]} triangles x"
+          f" {SWEEP_TRI_OPS} operations = {sweeps * rows.shape[2] * SWEEP_TRI_OPS}"
+          f" operations, beside {b1_bytes} bytes")
+    record(results, "player_move", err, ms, b2b, plain, b1_bytes,
+           sweeps * rows.shape[2] * SWEEP_TRI_OPS)
 
     # B2 on the port's own walk output, 256 envs at 320x200.
     args, kw, _ = P.fused_inputs(sim.portal_scene(), sim.scene, sim.config,
@@ -636,6 +696,23 @@ def phase_kernels_texstress(results):
 
     state = texstress_state()
     sim = make_sim(wad_file=TEX_WAD)
+    from tpu_doom_torch.ops import player_move, player_move_ref
+    from tpu_doom_torch.sim.collision import broadphase_rows
+
+    rows = broadphase_rows(sim.scene, state.object_offset, state.pos)
+    st8 = torch.cat([state.pos, state.vel, torch.zeros_like(state.pos[:, :2])], 1)
+    pcfg = sim.config.player
+    kw = dict(radius=pcfg.radius, height=pcfg.height, dt=sim.config.timestep,
+              substeps=pcfg.clip_substeps, enable_noclip=pcfg.enable_noclip)
+    same = bitwise_equal(player_move(rows, st8, **kw), player_move_ref(rows, st8, **kw))
+    runs = clip_substeps_run(rows, st8, pcfg.radius, sim.config.timestep,
+                             pcfg.clip_substeps)
+    print(f"[kernel] B1 player_move {TEX_WAD} rows {tuple(rows.shape)}: M ="
+          f" {rows.shape[2]}, bitwise equal {same} (ceiling 0); clip substeps run per"
+          f" env: {torch.bincount(runs, minlength=pcfg.clip_substeps + 1).tolist()}"
+          " envs at 0, 1, ... substeps")
+    require(same, f"B1 on {TEX_WAD} disagrees with its plain version")
+    del rows, st8
     with captured(P, "select_rows") as calls:
         args, kw, _ = P.fused_inputs(sim.portal_scene(), sim.scene, sim.config,
                                      W_MAIN, H_MAIN, state)
@@ -743,13 +820,16 @@ def phase_tools(results):
     from tpu_doom_torch.tools import onehotbench as OH
 
     # B10 at the TPU tool's defaults (3.1 M lookups per call: bound 0.3 us,
-    # so launch-bound), then at the main path's volume (one lookup per
-    # pixel of a 256-env frame), which is what the table record keeps.
+    # so launch-bound), at a ragged n (the kernel's scalar path for the
+    # last quad and for rows that are not 16-byte aligned), then at the main
+    # path's volume (one lookup per pixel of a 256-env frame), which is what
+    # the table record keeps, beside torch.take timed the same two ways.
     for label, (S, n, iters, grid) in (
             ("the TPU tool's defaults (launch-bound)", (534, 3072, 16, 64)),
+            ("a ragged n", (534, 3073, 16, 64)),
             ("the main path's volume", (534, B_MAIN * W_MAIN * H_MAIN, 1, 1))):
         idx, tab = OH.make_inputs(S, n, "cuda")
-        ms = {}
+        ms, b2b = {}, {}
         for v in OH.VARIANTS:
             got = OH.lookup(idx, tab, iters, grid, v)
             want = OH.lookup_ref(idx, tab, iters, grid, v)
@@ -759,7 +839,7 @@ def phase_tools(results):
             print(f"[tool] B10 onehot_lookup {v} S={S} n={n} iters={iters} grid={grid}:"
                   f" equal to its plain version {same} (ceiling 0)")
             require(same, f"B10 {v} disagrees with its plain version")
-            ms[v] = time_ms(lambda v=v: OH.lookup(idx, tab, iters, grid, v))
+            ms[v], b2b[v] = kernel_ms(lambda v=v: OH.lookup(idx, tab, iters, grid, v))
         plain = time_ms(lambda: OH.lookup_ref(idx, tab, iters, grid))
         # One add per lookup; the bytes are idx and the table read once and
         # the (grid, n) int32 output written once.
@@ -767,16 +847,18 @@ def phase_tools(results):
         # The library yardstick: torch.take, which computes the same function
         # at iters = 1 (idx < S * 128); it takes int64 indices, made untimed.
         idx64 = idx.long()
-        lib = (time_ms(lambda: torch.take(tab.view(-1), idx64)) if iters == 1 else None)
-        times = ", ".join(f"{v} {t:.4f} ms ({t * 1e6 / (iters * grid * n):.6f} ns per"
-                          " element lookup)" for v, t in ms.items())
+        lib, lib_b2b = (kernel_ms(lambda: torch.take(tab.view(-1), idx64))
+                        if iters == 1 else (None, None))
+        times = ", ".join(f"{v} {ms[v]:.4f} ms ({b2b[v]:.4f} back to back,"
+                          f" {b2b[v] * 1e6 / (iters * grid * n):.6f} ns per element"
+                          " lookup)" for v in OH.VARIANTS)
+        take = ("none at iters > 1" if lib is None
+                else f"{lib:.4f} ms ({lib_b2b:.4f} back to back)")
         print(f"[tool] B10 at {label}: {times}; plain {plain:.4f} ms; one"
-              f" torch.take: {'none at iters > 1' if lib is None else f'{lib:.4f} ms'}")
+              f" torch.take: {take}")
         if iters == 1:
-            b2b = time_ms(lambda: OH.lookup(idx, tab, iters, grid, "ldg"),
-                          per_pair=BACK_TO_BACK)
-            record(results, "onehot_lookup", 0.0, ms["ldg"], b2b, plain, n_bytes, ops,
-                   library_ms=lib)
+            record(results, "onehot_lookup", 0.0, ms["ldg"], b2b["ldg"], plain, n_bytes,
+                   ops, library_ms=lib, library_ms_b2b=lib_b2b)
         else:
             b = bound(n_bytes, ops)
             print(f"[bound] B10 at {label}: {n_bytes / 1e6:.3f} MB -> bound"
@@ -1068,7 +1150,7 @@ def main():
     segments = phase_main(results)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "ms_b2b", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             *(f"{seg}_launches" for seg in segments))
+             "library_ms_b2b", *(f"{seg}_launches" for seg in segments))
     print(json.dumps({"kernels": [{k: results[n][k] for k in order}
                                   for n in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

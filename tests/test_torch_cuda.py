@@ -327,3 +327,88 @@ def test_fmod_exact_is_fmodf_on_card(cuda_device):
                                 torch.cuda.current_stream().cuda_stream), "fmod_check")
     bad = (fast.view(torch.int32) != ref.view(torch.int32)).nonzero().flatten()[:5].cpu()
     assert bad.numel() == 0, [(x[i], y[i], float(fast[i]), float(ref[i])) for i in bad]
+
+
+# ---------------------------------------------------------------------------
+# B1 and B10 as redesigned for Hopper: shapes off the main path's, bitwise.
+# ---------------------------------------------------------------------------
+
+
+def _random_rows(rng, B, M):
+    """(B, 13, M) rows of random triangles around the origin (unit
+    normals of the triangles' planes, a few masked out) and (B, 8) states
+    with random positions and velocities, from numpy's generator."""
+    import numpy as np
+
+    v = rng.uniform(-1.5, 1.5, (B, M, 3, 3)).astype(np.float32)
+    n = np.cross(v[:, :, 1] - v[:, :, 0], v[:, :, 2] - v[:, :, 0])
+    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-6)
+    mask = (rng.random((B, M)) > 0.1).astype(np.float32)
+    rows = np.concatenate([v.reshape(B, M, 9), n, mask[..., None]], -1).transpose(0, 2, 1)
+    st8 = np.zeros((B, 8), np.float32)
+    st8[:, :3] = rng.uniform(-0.5, 0.5, (B, 3))
+    st8[:, 3:6] = rng.uniform(-60.0, 60.0, (B, 3))
+    return (torch.as_tensor(np.ascontiguousarray(rows, dtype=np.float32)),
+            torch.as_tensor(st8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 33, 102, 300])
+def test_player_move_random_triangles_on_card(cuda_device, M):
+    """On the card: B1 bitwise equal to its plain version on random
+    triangles, B = 5 envs, M = 1, 33, 102 and 300 (above one thread group
+    of 128), 4 substeps, noclip probe on and off."""
+    import numpy as np
+
+    from tpu_doom_torch.ops import player_move, player_move_ref
+
+    rows, st8 = _random_rows(np.random.default_rng(M), 5, M)
+    rows, st8 = rows.to(cuda_device), st8.to(cuda_device)
+    for noclip in (True, False):
+        kw = dict(radius=0.19, height=0.21, dt=1.0 / 60.0, substeps=4,
+                  enable_noclip=noclip)
+        got, want = player_move(rows, st8, **kw), player_move_ref(rows, st8, **kw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), noclip
+    if M > 1:
+        assert bool(torch.isfinite(want[:, 0]).any())  # some sweeps hit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("enable_noclip", [True, False])
+def test_player_move_walls_on_card(cuda_device, enable_noclip):
+    """On the card: B1 bitwise equal to its plain version on :test:'s
+    poses driven into walls, which stay blocked for 2-4 of 4 substeps
+    (tests/test_torch_smoke.py), beside 16 ordinary poses."""
+    from test_torch_smoke import MOVE_KW, _move_inputs
+
+    from tpu_doom_torch.ops import player_move, player_move_ref
+
+    rows, st8 = (x.to(cuda_device) for x in _move_inputs())
+    kw = dict(MOVE_KW, substeps=4, enable_noclip=enable_noclip)
+    got, want = player_move(rows, st8, **kw), player_move_ref(rows, st8, **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 4097])
+def test_onehot_lookup_shapes_on_card(cuda_device, n, offset):
+    """On the card: B10's three variants equal `lookup_ref` at n = 1, 3
+    and 4097 (a ragged last quad), on idx at its allocation and on a view
+    offset by 4 bytes (not 16-byte aligned: the scalar path), with one
+    row and with several (rows not 16-byte aligned when n % 4 != 0),
+    indices out of the table on both sides included."""
+    from tpu_doom_torch.tools import onehotbench as OH
+
+    g = torch.Generator().manual_seed(n + offset)
+    S = 534
+    base = torch.randint(-300, S * 128 + 300, (1, n + offset), generator=g,
+                         dtype=torch.int32).to(cuda_device)
+    idx = base[:, offset:]
+    assert (idx.data_ptr() % 16 != 0) == bool(offset)
+    tab = torch.randint(-128, 128, (S, 128), generator=g, dtype=torch.int8).to(cuda_device)
+    for iters, grid in ((1, 1), (3, 5)):
+        for variant in OH.VARIANTS:
+            got = OH.lookup(idx, tab, iters, grid, variant)
+            want = OH.lookup_ref(idx, tab, iters, grid, variant)
+            assert torch.equal(got, want), (variant, iters, grid)

@@ -224,6 +224,94 @@ def test_doomsim_portal_frames_match_jax():
         assert int((ct[i].numpy() != cj[i]).sum()) <= PORTAL_CEILING[name], name
 
 
+def test_chunked_render_matches_jax_chunked_render():
+    """`render_env_chunk=4` on the POSES (10 envs: a ragged last slice,
+    which JAX pads by repeating its last env and the port renders as it
+    is) in both packages: within the ceilings of the unchunked test."""
+    B = len(POSES)
+    kw = dict(wad_file=":test:", width=W_P, height=H_P, batch_size=B,
+              render_env_chunk=4)
+    simj = JaxSim(GameConfig(raster_backend="portal_jnp", **kw))
+    simt = TorchSim(TorchConfig(raster_backend="portal", **kw), "cpu")
+    s = simj.reset(B)
+    oo = np.zeros(s.object_offset.shape, np.float32)
+    for i, p in enumerate(POSES):
+        oo[i, 1], oo[i, 2] = p[4], p[5]
+    s = s._replace(
+        pos=jnp.asarray([p[1] for p in POSES], jnp.float32),
+        yaw=jnp.asarray([p[2] for p in POSES], jnp.float32),
+        time=jnp.asarray([p[3] for p in POSES], jnp.float32),
+        object_offset=jnp.asarray(oo),
+    )
+    ij, cj = (np.asarray(x) for x in simj.render(s))
+    it, ct = simt.render(state_from_numpy(TO_NP(s), "cpu"))
+    assert it.shape == (B, H_P, W_P)
+    for i, (name, *_) in enumerate(POSES):
+        assert int((it[i].numpy() != ij[i]).sum()) <= PORTAL_CEILING[name], name
+        assert int((ct[i].numpy() != cj[i]).sum()) <= PORTAL_CEILING[name], name
+
+
+CHUNK_CASES = [
+    # (wad, backend, extra, whether some env takes the triangle fallback)
+    (":test:", "portal", {}, False),
+    (":test:", "portal_jnp", {}, False),
+    (":test:", "jnp", {}, False),
+    (":test:", "portal", dict(portal_pitch="triangle"), True),
+    (":test:", "portal_jnp", dict(portal_compact_crossings=1), True),
+    (":texstress:", "portal", {}, False),
+    (":texstress:", "portal", dict(portal_global_segs_max=1024), False),
+]
+
+
+@pytest.mark.parametrize("wad, backend, extra, falls", CHUNK_CASES)
+def test_render_env_chunk_equals_one_piece(monkeypatch, wad, backend, extra, falls):
+    """`render_env_chunk=2` renders 5 envs as slices of 2, 2 and 1 through
+    DoomSim.render: bitwise the frames of `render_env_chunk=0`, on every
+    backend, the triangle fallback inside a slice included (pitched envs
+    under portal_pitch="triangle"; crossing overflow under portal_jnp)."""
+    import dataclasses
+
+    from tpu_doom_torch.render import portal as P
+
+    sim = TorchSim(TorchConfig(wad_file=wad, width=64, height=40, batch_size=5,
+                               raster_backend=backend, render_env_chunk=0, **extra),
+                   "cpu")
+    s = sim.reset()._replace(yaw=torch.tensor([0.0, 1.3, 2.6, 3.9, 5.2]),
+                             pitch=torch.tensor([1e-8, 0.3, 1e-8, -0.2, 1e-8]))
+    i0, c0 = sim.render(s)
+    fallback_envs = []
+    real = P.render_frames
+
+    def spy(scene, cfg, sub, width, height):
+        fallback_envs.append(sub.pos.shape[0])
+        return real(scene, cfg, sub, width, height)
+
+    monkeypatch.setattr(P, "render_frames", spy)
+    sim.config = dataclasses.replace(sim.config, render_env_chunk=2)
+    i2, c2 = sim.render(s)
+    assert torch.equal(i2, i0) and torch.equal(c2, c0)
+    assert float(c0.float().mean()) > 0.9
+    if backend.startswith("portal"):
+        assert bool(fallback_envs) == falls, fallback_envs
+        assert all(n <= 2 for n in fallback_envs)
+
+
+def test_tpu_layout_knobs_change_no_frame():
+    """`portal_tile_h` and `render_group_unroll` have no effect on the
+    port: non-default values, chunked or not, give the default frames."""
+    import dataclasses
+
+    sim = TorchSim(TorchConfig(wad_file=":test:", width=64, height=40, batch_size=3,
+                               raster_backend="portal"), "cpu")
+    s = sim.reset()._replace(yaw=torch.tensor([0.0, 2.0, 4.0]))
+    i0, c0 = sim.render(s)
+    for extra in (dict(portal_tile_h=32), dict(render_group_unroll=1),
+                  dict(portal_tile_h=8, render_group_unroll=4, render_env_chunk=2)):
+        sim.config = dataclasses.replace(sim.config, **extra)
+        i, c = sim.render(s)
+        assert torch.equal(i, i0) and torch.equal(c, c0), extra
+
+
 def test_verify_ref_poses_within_ceiling():
     """The 8 verify poses at 320x200 vs the JAX-made verify_ref.npz that
     chip_smoke.py holds the card to (<= 16 px per pose)."""

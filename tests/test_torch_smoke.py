@@ -7,6 +7,11 @@ inputs need: `portal_bytes` (B2, both table modes) and `shade_bytes`
 walk. Here the winners come another way (the first prefix of the records
 that covers a pixel) and each env, column and pixel is counted in a
 Python loop. Tolerance: exact (integers).
+
+B1's bound counts the sweeps its inputs need (`player_move_sweeps`):
+each env's clip substeps stop at the first that is not blocked, which
+leaves the plain version's output unchanged (held bitwise here), and the
+count is held to one made env by env.
 """
 
 import importlib.util
@@ -164,3 +169,103 @@ def test_shade_bytes_counts_each_pixel():
                 cmap.add((int(crow[b, p]), v1))
     want = total + len(texels) + len(holes) + len(cmap)
     assert cs.shade_bytes(ch, sargs, shear) == want
+
+
+# ---------------------------------------------------------------------------
+# B1's early exit and the sweeps its bound counts.
+# ---------------------------------------------------------------------------
+
+MOVE_KW = dict(radius=0.19, height=0.21, dt=1.0 / 60.0)
+# (pos, vel) on :test: driven into walls at speed: the clip substeps stay
+# blocked for 2, 2, 3, 3, 4 and 4 substeps before the first that is not.
+WALL_POSES = [
+    ([-5.322443, 0.517154, -2.971954], [29.607201, -0.396883, -16.145632]),
+    ([-4.924472, 0.579896, -4.392363], [-37.535091, 3.734373, -29.851299]),
+    ([-2.598571, 0.782959, -6.101626], [31.295546, 1.346841, -18.249713]),
+    ([-4.506347, 0.242570, -9.900106], [-13.988363, -4.495687, 27.924831]),
+    ([-3.197642, 0.270342, -6.258263], [-21.719618, 1.646252, 31.182529]),
+    ([-4.589288, 0.524732, -9.854610], [1.065998, -4.526350, -22.857860]),
+]
+
+
+def _move_inputs():
+    """B1's rows and state8 on :test: for the 16 poses of
+    test_torch_sim.py's test_player_move_ref_matches_jax_move_core
+    (default_rng(0)), then the WALL_POSES."""
+    import numpy as np
+
+    from tpu_doom_torch.sim.collision import broadphase_rows
+
+    sim = DoomSim(GameConfig(wad_file=":test:", raster_backend="portal"), "cpu")
+    rng = np.random.default_rng(0)
+    s = sim.reset(16)
+    jitter = rng.uniform(-0.5, 0.5, (16, 3)) * np.array([1.0, 0.3, 1.0])
+    pos = (s.pos.numpy() + jitter).astype(np.float32)
+    pos[8:] += np.array([0.3, -0.2, -6.0], np.float32)  # door corridor
+    vel = rng.uniform(-3.0, 3.0, (16, 3)).astype(np.float32)
+    pos = np.concatenate([pos, np.array([p for p, _ in WALL_POSES], np.float32)])
+    vel = np.concatenate([vel, np.array([v for _, v in WALL_POSES], np.float32)])
+    pos, vel = torch.as_tensor(pos), torch.as_tensor(vel)
+    offsets = torch.zeros((pos.shape[0], s.object_offset.shape[1]))
+    rows = broadphase_rows(sim.scene, offsets, pos)
+    return rows, torch.cat([pos, vel, torch.zeros((pos.shape[0], 2))], 1)
+
+
+def test_player_move_early_exit_leaves_the_output():
+    """The invariant B1's early exit rests on: per env, player_move_ref
+    with 4 substeps equals it with the substeps cut to that env's first
+    substep that is not blocked (bitwise), on the 16 poses and on poses
+    driven into walls, which stay blocked for 2-4 substeps."""
+    from tpu_doom_torch.ops.collision import player_move_ref
+
+    rows, st8 = _move_inputs()
+    runs = _chip_smoke().clip_substeps_run(rows, st8, MOVE_KW["radius"], MOVE_KW["dt"], 4)
+    assert runs[:16].tolist() == [1] * 16
+    assert runs[16:].tolist() == [2, 2, 3, 3, 4, 4]
+    full = player_move_ref(rows, st8, substeps=4, **MOVE_KW)
+    for k in (1, 2, 3):
+        cut = player_move_ref(rows, st8, substeps=k, **MOVE_KW)
+        done = runs <= k
+        assert torch.equal(cut[done].view(torch.int32), full[done].view(torch.int32)), k
+        # An env still blocked after k substeps moves on in the next.
+        assert not bool((cut[~done, 4:10] == full[~done, 4:10]).all(1).any()), k
+
+
+def _substeps_run_env(rows, st8, substeps, radius, dt):
+    """One env's clip substeps, counted in a loop that stops at the first
+    substep that is not blocked, as the kernel does."""
+    from tpu_doom_torch._numerics import f32, rdiv
+    from tpu_doom_torch.ops.collision import INF, _sweep
+
+    comp = tuple(rows[None, i] for i in range(12))
+    mask = rows[None, 12] > 0.5
+    p = [st8[None, k:k + 1] for k in range(3)]
+    v = [st8[None, k:k + 1] for k in range(3, 6)]
+    time_left = torch.zeros((1, 1)) + f32(dt)
+    for s in range(substeps):
+        d = [x * time_left for x in v]
+        ct, nx, ny, nz = _sweep(comp, mask, *p, *d, f32(radius))
+        dmag = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+        adjusted = ct - rdiv(0.001, torch.where(dmag > 0.0, dmag, 1.0))
+        if not bool((ct < INF) & (adjusted < 1.0)):
+            return s + 1
+        p = [x + dx * adjusted for x, dx in zip(p, d)]
+        ndv = nx * v[0] + ny * v[1] + nz * v[2]
+        v = [x - n * ndv for x, n in zip(v, (nx, ny, nz))]
+        time_left = time_left * (1.0 - torch.clamp(ct, 0.0, 1.0))
+    return substeps
+
+
+@pytest.mark.parametrize("enable_noclip", [True, False])
+def test_player_move_sweeps_counts_each_env(enable_noclip):
+    """B1's bound counts per env the ground probe, the noclip probe when
+    it is on, and the clip substeps through the first that is not
+    blocked: equal to a count made env by env. Tolerance: exact."""
+    cs = _chip_smoke()
+    rows, st8 = _move_inputs()
+    runs = [_substeps_run_env(rows[b], st8[b], 4, MOVE_KW["radius"], MOVE_KW["dt"])
+            for b in range(rows.shape[0])]
+    radius, dt = MOVE_KW["radius"], MOVE_KW["dt"]
+    assert cs.clip_substeps_run(rows, st8, radius, dt, 4).tolist() == runs
+    want = sum(runs) + len(runs) * (2 if enable_noclip else 1)
+    assert cs.player_move_sweeps(rows, st8, radius, dt, 4, enable_noclip) == want

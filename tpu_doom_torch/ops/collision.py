@@ -7,11 +7,15 @@ velocity projection, and the noclip probe (2000-unit drop), each a swept
 sphere against the env's M broad-phase triangles; nearest hit, lower
 triangle index on ties (as `jnp.argmin`).
 
-CUDA design (csrc/player_move.cu): one warp per env; each lane sweeps
-triangles lane, lane+32, ...; the nearest hit is a warp-shuffle min over
-(dist, index). The sweeps run in order inside the warp. On this card the
-kernel is latency bound: ~6 dependent sweeps of M = 102 triangles per
-env on `:test:`, a few KB of rows per env.
+CUDA design (csrc/player_move.cu): one block per env, its rows staged
+once in shared memory; a sweep spreads its triangles over the threads and
+takes the nearest hit as an argmin over (dist, index). The ground probe,
+the noclip probe and the first clip substep run at once, each on its own
+group of 128 threads, and the later substeps run only while the env is
+still blocked: an env whose substep is not blocked is done, and the plain
+version's remaining substeps change nothing for it. The kernel is latency
+bound: a few dependent sweeps of M = 102 triangles per env on `:test:`,
+a few KB of rows per env.
 
 `player_move_ref` is the plain PyTorch version, op for op the same
 arithmetic; `player_move` takes it for CPU tensors and launches the
