@@ -19,8 +19,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
      to back). On :test: (B1: 256
      envs; B2, then B7 and B8 of the portal_jnp configuration on the same
      state: 256 envs at 320x200, with the chain B7 -> B8 against B2
-     printed; B3 and B9: the 8 verify poses at 320x200, 3 layers); on
-     :texstress: at 320x200 x 256 envs after 8 bench ticks, from the
+     printed; B3 and B9: the 8 verify poses at 320x200, 3 layers, and
+     the maze shape, fallback_sim's 128 pitched envs on :texstress: at
+     reset, against the plain versions on 16 of them; their bounds count
+     one coverage test per covering (pixel, triangle) pair, whatever K);
+     on :texstress: at 320x200 x 256 envs after 8 bench ticks, from the
      port's own walk: B4 and B2 on the global table (records (256, 120,
      16, 320)) at shipped defaults, B6, B5 and B2's per-env mode with
      portal_global_segs_max=1024 (all bitwise); B1 on :texstress:'s rows
@@ -56,6 +59,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      oracle, oracle_fallback: the same with raster_backend="portal_jnp"
        (B7 and B8 every frame; 4 warm-up ticks, 3 windows of 8 ticks),
        and its fallback through the jnp triangle path (B9);
+     texstress_fallback, texstress_oracle_fallback: both fallbacks on
+       :texstress: (B3, B9 on a maze's triangles);
      texstress, texstress_act: DoomSim on :texstress: at 320x200 x 256
        envs, bench actions, at shipped defaults (the big-level walk with
        B4) and with portal_global_segs_max=1024 (the active-set path: B6,
@@ -86,6 +91,7 @@ TIMING_CALLS = 20
 BACK_TO_BACK = 10  # kernel launches per pair of CUDA events
 PX_CEILING = 16  # per-frame mismatch ceiling of the verify legs (bench.py:90)
 B3_REL_TOL = 1e-6
+MAZE_PLAIN_ENVS = 16  # envs the plain B3 and B9 run on at the maze shape
 
 KERNELS = {
     "player_move": dict(
@@ -121,6 +127,14 @@ KERNELS = {
         source="tpu_doom_torch/csrc/shade_portal.cu",
         replaces="tpu_doom/ops/raster_pallas.py:1394"),
     "depth_peel": dict(
+        source="tpu_doom_torch/csrc/depth_peel.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:169"),
+    # B3 and B9 on a maze's triangles: fallback_sim's 128 pitched envs on
+    # :texstress: (T = 2,056 rows).
+    "peel_resolve_maze": dict(
+        source="tpu_doom_torch/csrc/peel_resolve.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:322"),
+    "depth_peel_maze": dict(
         source="tpu_doom_torch/csrc/depth_peel.cu",
         replaces="tpu_doom/ops/raster_pallas.py:169"),
     # The instruments' kernels (phase 4); no main-path segment launches them.
@@ -168,10 +182,10 @@ def bench_actions(sim, batch):
     )
 
 
-def time_ms(fn, calls=TIMING_CALLS, per_pair=1):
+def time_ms(fn, calls=TIMING_CALLS, per_pair=1, warmup=2):
     """Median milliseconds per call over `calls` pairs of CUDA events, each
-    pair around `per_pair` calls back to back, after two warm-up calls."""
-    for _ in range(2):
+    pair around `per_pair` calls back to back, after `warmup` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -469,15 +483,12 @@ def verify_state(sim, ref):
 
 def phase_kernels(results):
     from tpu_doom_torch.ops import (
-        peel_resolve,
-        peel_resolve_ref,
         player_move,
         player_move_ref,
         render_portal_fused,
         render_portal_fused_ref,
     )
     from tpu_doom_torch.render import portal as P
-    from tpu_doom_torch.render import raster as R
     from tpu_doom_torch.sim.collision import broadphase_rows
 
     sim = make_sim()
@@ -532,66 +543,143 @@ def phase_kernels(results):
     phase_kernels_oracle(results, state, gi)
     del gi
 
-    # B3 on the 8 verify poses at 320x200, 3 layers.
+    # B3 and B9 on the 8 verify poses at 320x200, 3 layers.
     ref = verify_ref()
     vsim = make_sim(batch_size=8, portal_crossings=12, raster_backend="auto")
-    tcfg = vsim.config
-    trows, tattrs, grid, yb, _ = R.peel_inputs(
-        vsim.scene, tcfg, W_MAIN, H_MAIN, verify_state(vsim, ref))
-    pk = dict(tile_p=tcfg.raster_tile_p, chunk_t=tcfg.raster_chunk_t)
-    n_layers = tcfg.depth_layers
-    got = peel_resolve(trows, tattrs, grid, yb, n_layers, **pk)
-    want = peel_resolve_ref(trows, tattrs, grid, yb, n_layers, **pk)
+    phase_peel(results, "", "the 8 verify poses", vsim, verify_state(vsim, ref))
+
+
+def peel_pairs(rows, grid, ybounds=None, tile_p=None, chunk_t=None):
+    """The (pixel, triangle) pairs where the triangle covers the pixel
+    (`_peel_cover`), summed over envs: the coverage tests any exact peel of
+    these inputs must make, whatever its number of layers (B3's and B9's
+    bounds count PEEL_TEST_OPS for each); with ybounds, only the pairs
+    B3's window-y cull admits."""
+    from tpu_doom_torch.ops.raster import _chunk_ybounds, _peel_cover, _tile_ybounds
+
+    B, T, _ = rows.shape
+    P, dev = grid.shape[1], grid.device
+    px, py = grid[0][None], grid[1][None]
+    if ybounds is not None:
+        cb = _chunk_ybounds(ybounds, chunk_t)[:, torch.arange(T, device=dev) // chunk_t]
+        tb = _tile_ybounds(grid, tile_p)[torch.arange(P, device=dev) // tile_p]
+    n = 0
+    for b in range(B):
+        cover, _ = _peel_cover(rows[b], px, py)
+        if ybounds is not None:
+            cover &= (cb[b, :, 0, None] <= tb[:, 1]) & (cb[b, :, 1, None] >= tb[:, 0])
+        n += int(cover.sum())
+    return n
+
+
+def peel_tile_tests(rows, grid, width):
+    """The coverage tests B3 and B9 make after their cull: per 32 x 8 tile,
+    the rows `_peel_may_cover` keeps times the tile's pixels, summed over
+    tiles and envs (B3's chunk y-cull may drop more)."""
+    from tpu_doom_torch.ops.raster import _peel_may_cover, _peel_tile_boxes
+
+    tile, boxes = _peel_tile_boxes(grid, width)
+    pixels = torch.bincount(tile, minlength=boxes.shape[0]).to(torch.float64)
+    return int(sum(float(_peel_may_cover(r, boxes).sum(0).to(torch.float64) @ pixels)
+                   for r in rows))
+
+
+def phase_peel(results, suffix, label, sim, state, plain_envs=None):
+    """B3 and B9 on the triangle path's inputs for `state` at 320x200, each
+    against its plain version (where plain_envs is given, on the first
+    plain_envs envs, the plain version timed once), timed beside its bound:
+    the bytes of its inputs and output, or PEEL_TEST_OPS per covering
+    (pixel, triangle) pair (`peel_pairs`), whichever takes longer."""
+    from tpu_doom_torch.ops import (
+        depth_peel,
+        depth_peel_ref,
+        pack_triangle_rows,
+        peel_resolve,
+        peel_resolve_ref,
+    )
+    from tpu_doom_torch.render import raster as R
+
+    cfg = sim.config
+    K = cfg.depth_layers
+    trows, tattrs, grid, yb, _ = R.peel_inputs(sim.scene, cfg, W_MAIN, H_MAIN, state)
+    pk = dict(tile_p=cfg.raster_tile_p, chunk_t=cfg.raster_chunk_t)
+    n = plain_envs or trows.shape[0]
+    plain_calls = dict(calls=1, warmup=0) if plain_envs else {}
+    slice_ = f" (plain version on envs 0-{n - 1}, one timed call)" if plain_envs else ""
+
+    def b3():
+        return peel_resolve(trows, tattrs, grid, yb, K, **pk, width=W_MAIN)
+
+    def b3_plain():
+        return peel_resolve_ref(trows[:n], tattrs[:n], grid, yb[:n], K, **pk)
+
+    got, want = b3(), b3_plain()
     torch.cuda.synchronize()
-    cat_ok = all(torch.equal(got[:, :, c], want[:, :, c]) for c in (11, 12, 13))
+    sub = got[:n]
+    cat_ok = all(torch.equal(sub[:, :, c], want[:, :, c]) for c in (11, 12, 13))
     fl = [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10]
-    g, w = got[:, :, fl].double(), want[:, :, fl].double()
+    g, w = sub[:, :, fl].double(), want[:, :, fl].double()
     fin = torch.isfinite(w)
     fin_ok = torch.equal(torch.isfinite(g), fin) and torch.equal(g[~fin], w[~fin])
     rel = float(((g - w).abs() / w.abs().clamp_min(1e-30))[fin].max())
-    err = max_abs_err(got, want)
-    ms, b2b = kernel_ms(lambda: peel_resolve(trows, tattrs, grid, yb, n_layers, **pk))
-    plain = time_ms(lambda: peel_resolve_ref(trows, tattrs, grid, yb, n_layers, **pk))
-    print(f"[kernel] B3 peel_resolve rows {tuple(trows.shape)} P={grid.shape[1]}"
-          f" K={n_layers}: has/pass/transparent equal {cat_ok}, float max rel err"
+    err = max_abs_err(sub, want)
+    del sub, want, g, w, fin
+    ms, b2b = kernel_ms(b3)
+    plain = time_ms(b3_plain, **plain_calls)
+    pairs = peel_pairs(trows, grid, yb, **pk)
+    print(f"[kernel] B3 peel_resolve {label} rows {tuple(trows.shape)} P={grid.shape[1]}"
+          f" K={K}{slice_}: has/pass/transparent equal {cat_ok}, float max rel err"
           f" {rel} (ceiling {B3_REL_TOL}), max_abs_err {err}; {ms:.4f} ms"
-          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
+          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms; {pairs} covering"
+          f" (pixel, triangle) pairs, {peel_tile_tests(trows, grid, W_MAIN)} tests after"
+          " the cull")
     require(cat_ok and fin_ok and rel <= B3_REL_TOL,
-            "B3 disagrees with its plain version")
-    from tpu_doom_torch.ops.raster import _pad_peel_inputs
+            f"B3 disagrees with its plain version on {label}")
+    record(results, "peel_resolve" + suffix, err, ms, b2b, plain,
+           nbytes(trows, tattrs, grid, yb, got), pairs * PEEL_TEST_OPS)
+    b3z = got[:, :, 0].clone()
+    del got
 
-    _, _, gridp, cb = _pad_peel_inputs(trows, tattrs, grid, yb, pk["tile_p"],
-                                       pk["chunk_t"])
-    pyt = gridp[1].reshape(-1, pk["tile_p"])
-    overlap = ((cb[..., 0, None] <= pyt.amax(dim=1) + 1.0)
-               & (cb[..., 1, None] >= pyt.amin(dim=1) - 1.0))  # chunks x tiles
-    tests = int(overlap.sum()) * pk["tile_p"] * pk["chunk_t"] * n_layers
-    record(results, "peel_resolve", err, ms, b2b, plain,
-           nbytes(trows, tattrs, grid, yb, got), tests * PEEL_TEST_OPS)
-
-    # B9 on the same 8 poses: the "jnp" path's unsorted 16-column rows.
-    from tpu_doom_torch.ops import depth_peel, depth_peel_ref, pack_triangle_rows
-
-    prep = R.prepare(vsim.scene, tcfg, W_MAIN, H_MAIN, verify_state(vsim, ref))
+    # B9 on the same states: the "jnp" path's unsorted 16-column rows.
+    prep = R.prepare(sim.scene, cfg, W_MAIN, H_MAIN, state)
     rows16 = pack_triangle_rows(prep["e"], prep["det"], prep["vz"], prep["vs"])
-    z, ids = depth_peel(rows16, grid, n_layers, **pk)
-    zr, idr = depth_peel_ref(rows16, grid, n_layers, **pk)
+    del prep
+
+    def b9():
+        return depth_peel(rows16, grid, K, width=W_MAIN)
+
+    def b9_plain():
+        return depth_peel_ref(rows16[:n], grid, K)
+
+    (z, ids), (zr, idr) = b9(), b9_plain()
     torch.cuda.synchronize()
-    same = torch.equal(ids, idr) and bitwise_equal(z, zr)
-    err = max_abs_err(z, zr)
-    ms, b2b = kernel_ms(lambda: depth_peel(rows16, grid, n_layers, **pk))
-    plain = time_ms(lambda: depth_peel_ref(rows16, grid, n_layers, **pk))
+    same = torch.equal(ids[:n], idr) and bitwise_equal(z[:n], zr)
+    err = max_abs_err(z[:n], zr)
+    ms, b2b = kernel_ms(b9)
+    plain = time_ms(b9_plain, **plain_calls)
+    pairs = peel_pairs(rows16, grid)
     # For the record: B9's z against B3's channel 0 (the same winners: B3's
     # y-sorted rows carry the draw-order ids B9 has as positions).
-    b3z = max_abs_err(z, got[:, :, 0])
-    print(f"[kernel] B9 depth_peel rows {tuple(rows16.shape)} P={grid.shape[1]}"
-          f" K={n_layers}: ids equal and z bitwise {same} (ceiling 0),"
-          f" max_abs_err {err}; z vs B3's channel 0 max_abs_err {b3z};"
-          f" {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
-    require(same, "B9 disagrees with its plain version")
-    record(results, "depth_peel", err, ms, b2b, plain, nbytes(rows16, grid, z, ids),
-           rows16.shape[0] * rows16.shape[1] * grid.shape[1] * n_layers
-           * PEEL_TEST_OPS)
+    print(f"[kernel] B9 depth_peel {label} rows {tuple(rows16.shape)} P={grid.shape[1]}"
+          f" K={K}{slice_}: ids equal and z bitwise {same} (ceiling 0), max_abs_err"
+          f" {err}; z vs B3's channel 0 max_abs_err {max_abs_err(z, b3z)}; {ms:.4f} ms"
+          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms; {pairs} covering"
+          f" (pixel, triangle) pairs, {peel_tile_tests(rows16, grid, W_MAIN)} tests after"
+          " the cull")
+    require(same, f"B9 disagrees with its plain version on {label}")
+    record(results, "depth_peel" + suffix, err, ms, b2b, plain,
+           nbytes(rows16, grid, z, ids), pairs * PEEL_TEST_OPS)
+
+
+def phase_kernels_maze(results):
+    """B3 and B9 at the maze shape: the 128 pitched envs of fallback_sim
+    on :texstress: at reset, which the fallback renders through the
+    triangle path; the plain versions on a 16-env slice."""
+    sim, state, _ = fallback_sim(wad_file=TEX_WAD)
+    pitched = type(state)(*(x[: B_MAIN // 2] for x in state))
+    require(bool((pitched.pitch.abs() > 0.0).all()), "the maze envs are not pitched")
+    phase_peel(results, "_maze", f"{TEX_WAD} {B_MAIN // 2} pitched envs", sim, pitched,
+               plain_envs=MAZE_PLAIN_ENVS)
 
 
 def phase_kernels_oracle(results, state, b2_idx):
@@ -1109,6 +1197,14 @@ def phase_main(results):
         "oracle_fallback", fsim, fstate, facts, "depth_peel")
     del fsim, fstate
 
+    # The same two fallbacks on a maze's triangles (:texstress:).
+    for seg, backend, needed in (("texstress_fallback", "portal", "peel_resolve"),
+                                 ("texstress_oracle_fallback", "portal_jnp",
+                                  "depth_peel")):
+        fsim, fstate, facts = fallback_sim(wad_file=TEX_WAD, raster_backend=backend)
+        segments[seg] = fallback_segment(seg, fsim, fstate, facts, needed)
+        del fsim, fstate
+
     for seg, extra, needed in (
             ("texstress", {}, ("player_move", "render_portal_fused", "select_rows")),
             ("texstress_act", dict(portal_global_segs_max=TEX_CAP),
@@ -1125,10 +1221,12 @@ def phase_main(results):
             TEX_TICKS, needed)
         del sim, state
 
-    for seg, c in segments.items():  # B2's global-table launches on :texstress:
+    for seg, c in segments.items():  # B2's global-table, B3's and B9's launches on :texstress:
+        maze = seg.startswith("texstress")
         c["render_portal_fused_texstress"] = (
-            c["render_portal_fused"] - c["render_portal_fused_per_env"]
-            if seg.startswith("texstress") else 0)
+            c["render_portal_fused"] - c["render_portal_fused_per_env"] if maze else 0)
+        c["peel_resolve_maze"] = c["peel_resolve"] if maze else 0
+        c["depth_peel_maze"] = c["depth_peel"] if maze else 0
     totals = {k: sum(c[k] for c in segments.values()) for k in results}
     for name, r in results.items():
         require(name in TOOL_KERNELS or totals[name] > 0,
@@ -1144,6 +1242,7 @@ def main():
     results = {name: dict(name=name, route="cuda", **meta)
                for name, meta in KERNELS.items()}
     phase_kernels(results)
+    phase_kernels_maze(results)
     phase_kernels_texstress(results)
     phase_tools(results)
     phase_goldens()

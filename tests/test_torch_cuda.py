@@ -8,6 +8,9 @@ the JAX package, so it also runs on the GPU machine, which has neither:
 the full-size checks.
 """
 
+import importlib.util
+import os
+
 import pytest
 import torch
 
@@ -64,9 +67,56 @@ def test_peel_resolve_matches_plain_version_on_card(cuda_device):
         pos=torch.tensor([[-2.2, 0.2, -8.8], [-3.5, 1.0, -9.0]], device=cuda_device),
         pitch=torch.tensor([0.3, 1e-8], device=cuda_device))
     rows, attrs, grid, yb, _ = R.peel_inputs(sim.scene, sim.config, 64, 40, s)
-    got = peel_resolve(rows, attrs, grid, yb, 3, tile_p=256, chunk_t=64)
+    got = peel_resolve(rows, attrs, grid, yb, 3, tile_p=256, chunk_t=64, width=64)
     want = peel_resolve_ref(rows, attrs, grid, yb, 3, tile_p=256, chunk_t=64)
     assert torch.equal(got, want)
+
+
+def _peel_inputs(case, device):
+    """(rows (2, T, 24), attrs, grid, ybounds, rows16 (2, T, 16), width,
+    tile_p, chunk_t) of a case of test_peel_kernels_match_plain_versions_on_card,
+    from tests/test_torch_peel.py's makers (loaded by path: this file runs
+    with --noconftest)."""
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_peel", os.path.join(os.path.dirname(__file__), "test_torch_peel.py"))
+    tp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tp)
+    if case in ("test", "texstress"):
+        wad = {"test": ":test:", "texstress": ":texstress:10x16"}[case]
+        return (*tp.level_inputs(wad, device=device), 64, 256, 64)
+    if case == "ragged":  # P fills no whole tile row, bin or run; T no whole chunk
+        rows, attrs, grid, yb, rows16 = tp.level_inputs(":test:", 160, 100, device)
+        return rows, attrs, grid[:, :-37], yb, rows16, 160, 1024, 48
+    rows16, rows, attrs, yb = tp.synthetic_rows(0, width=160, height=100)
+    if case == "invalid":
+        rows16[..., 15] = 0.0
+        rows[..., 15] = 0.0
+    grid = tp.R.pixel_grid(160, 100, device)
+    return (*(x.to(device) for x in (rows, attrs)), grid, yb.to(device),
+            rows16.to(device), 160, 256, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3, 4, 9])
+@pytest.mark.parametrize("case", ["test", "texstress", "synthetic", "ragged", "invalid"])
+def test_peel_kernels_match_plain_versions_on_card(cuda_device, case, K):
+    """On the card: B3 equal to its plain version, B9's ids equal and z
+    bitwise, at K = 1, 3, 4 and 9 (two sweeps), on pitched views of :test:
+    and :texstress:10x16 at 64x40, on tests/test_torch_peel.py's synthetic
+    rows at 160x100 (ties, +-0, edges through pixel centres, arbitrary
+    window-y bounds, T = 300: two row groups, six bins, two with no row),
+    on a 160x100 view whose last row, bin and run are cut short with T no
+    whole chunk, and on rows that are all invalid."""
+    from tpu_doom_torch.ops import depth_peel, depth_peel_ref, peel_resolve, peel_resolve_ref
+
+    rows, attrs, grid, yb, rows16, width, tile_p, chunk_t = _peel_inputs(case, cuda_device)
+    got = peel_resolve(rows, attrs, grid, yb, K, tile_p, chunk_t, width=width)
+    want = peel_resolve_ref(rows, attrs, grid, yb, K, tile_p, chunk_t)
+    assert torch.equal(got, want)
+    assert bool(want[:, :, 13].any()) == (case != "invalid")
+    z, ids = depth_peel(rows16, grid, K, width=width)
+    zr, idr = depth_peel_ref(rows16, grid, K)
+    assert torch.equal(ids, idr) and torch.equal(z.view(torch.int32), zr.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -151,7 +201,7 @@ def test_reference_config_kernels_match_plain_versions_on_card(cuda_device):
     prep = R.prepare(sim.scene, sim.config, 64, 40, s)
     rows = pack_triangle_rows(prep["e"], prep["det"], prep["vz"], prep["vs"])
     grid = R.pixel_grid(64, 40, cuda_device)
-    z, ids = depth_peel(rows, grid, 3, tile_p=256, chunk_t=64)
+    z, ids = depth_peel(rows, grid, 3, width=64)
     zr, idr = depth_peel_ref(rows, grid, 3)
     assert torch.equal(ids, idr) and torch.equal(z.view(torch.int32), zr.view(torch.int32))
 

@@ -69,7 +69,7 @@ def test_depth_peel_ref_matches_pallas_interpret():
     np.testing.assert_array_equal(got_rows.numpy(), np.asarray(rows))
     zp, ip = (np.asarray(x) for x in depth_peel_pallas(
         rows, grid, 3, tile_p=256, chunk_t=64, interpret=True))
-    zg, ig = depth_peel_ref(got_rows, T(grid), 3, tile_p=256, chunk_t=64)
+    zg, ig = depth_peel_ref(got_rows, T(grid), 3)
     assert ig.dtype == torch.int32
     np.testing.assert_array_equal(ig.numpy(), ip)
     fin = np.isfinite(zp)

@@ -8,6 +8,9 @@ walk. Here the winners come another way (the first prefix of the records
 that covers a pixel) and each env, column and pixel is counted in a
 Python loop. Tolerance: exact (integers).
 
+B3's and B9's bounds count one coverage test per covering (pixel,
+triangle) pair (`peel_pairs`), held to a count made triangle by triangle.
+
 B1's bound counts the sweeps its inputs need (`player_move_sweeps`):
 each env's clip substeps stop at the first that is not blocked, which
 leaves the plain version's output unchanged (held bitwise here), and the
@@ -269,3 +272,67 @@ def test_player_move_sweeps_counts_each_env(enable_noclip):
     assert cs.clip_substeps_run(rows, st8, radius, dt, 4).tolist() == runs
     want = sum(runs) + len(runs) * (2 if enable_noclip else 1)
     assert cs.player_move_sweeps(rows, st8, radius, dt, 4, enable_noclip) == want
+
+
+# ---------------------------------------------------------------------------
+# B3's and B9's bound: one coverage test per covering (pixel, triangle) pair.
+# ---------------------------------------------------------------------------
+
+
+def _pairs_by_triangle(rows, grid, ybounds=None, tile_p=None, chunk_t=None):
+    """The covering pairs counted env by env and triangle by triangle, in
+    numpy float32 one rounding at a time, with B3's window-y cull checked
+    per chunk of chunk_t rows against each pixel's run of tile_p pixels."""
+    import numpy as np
+
+    px, py = grid[0].numpy(), grid[1].numpy()
+    P = px.size
+    runs = np.concatenate([py, np.zeros(-P % tile_p if tile_p else 0, np.float32)])
+    if tile_p:
+        runs = runs.reshape(-1, tile_p)
+        y_lo = np.repeat(runs.min(1) - 1.0, tile_p)[:P]
+        y_hi = np.repeat(runs.max(1) + 1.0, tile_p)[:P]
+    n = 0
+    for b in range(rows.shape[0]):
+        for t in range(rows.shape[1]):
+            s = rows[b, t].numpy()
+            lam0, lam1, lam2, z, slam = (s[i] * px + s[i + 1] * py + s[i + 2]
+                                         for i in (0, 3, 6, 9, 12))
+            cov = ((s[15] > 0.0) & (lam0 >= 0.0) & (lam1 >= 0.0) & (lam2 >= 0.0)
+                   & (slam > 0.0) & (z >= -1.0) & (z <= 1.0))
+            if ybounds is not None:
+                chunk = ybounds[b, t // chunk_t * chunk_t:][:chunk_t].numpy()
+                cov &= (chunk[:, 0].min() <= y_hi) & (chunk[:, 1].max() >= y_lo)
+            n += int(cov.sum())
+    return n
+
+
+@pytest.mark.parametrize("wad", [":test:", ":texstress:10x16"])
+def test_peel_pairs_counts_each_env(wad):
+    """B3's and B9's bound count one coverage test per covering (pixel,
+    triangle) pair, whatever the number of layers: `peel_pairs` equals the
+    count made env by env and triangle by triangle, on B9's rows and on
+    B3's y-sorted rows with its window-y cull (chunks of 16 rows, runs of
+    64 pixels), which on a level's own rows drops no covering pair.
+    Tolerance: exact."""
+    from tpu_doom_torch.ops import pack_triangle_rows
+    from tpu_doom_torch.render import raster as R
+
+    cs = _chip_smoke()
+    sim = DoomSim(GameConfig(wad_file=wad, width=W, height=H, batch_size=2,
+                             raster_backend="auto"), "cpu")
+    s = sim.reset()._replace(yaw=torch.tensor([0.9, 2.2]), pitch=torch.tensor([0.3, -0.35]))
+    rows, _, grid, yb, _ = R.peel_inputs(sim.scene, sim.config, W, H, s)
+    prep = R.prepare(sim.scene, sim.config, W, H, s)
+    rows16 = pack_triangle_rows(prep["e"], prep["det"], prep["vz"], prep["vs"])
+    n = cs.peel_pairs(rows16, grid)
+    assert n == _pairs_by_triangle(rows16, grid)
+    assert 0 < n < rows16.shape[0] * rows16.shape[1] * grid.shape[1]
+    assert cs.peel_pairs(rows, grid, yb, tile_p=64, chunk_t=16) == n
+    assert _pairs_by_triangle(rows, grid, yb, tile_p=64, chunk_t=16) == n
+    # Every other chunk's bounds moved above the image: the cull then
+    # drops its covering pairs.
+    bad = yb.clone()
+    bad[:, (torch.arange(yb.shape[1]) // 16) % 2 == 1] = torch.tensor([H + 10.0, H + 11.0])
+    cut = cs.peel_pairs(rows, grid, bad, tile_p=64, chunk_t=16)
+    assert cut == _pairs_by_triangle(rows, grid, bad, tile_p=64, chunk_t=16) and cut < n

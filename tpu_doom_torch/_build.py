@@ -48,10 +48,10 @@ SIGNATURES = {
     "tdt_render_portal": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                           _P],
-    # rows, attrs, grid, chunk_bounds, out, B, T_pad, P, P_pad,
-    # n_layers, tile_p, chunk_t, stream
-    "tdt_peel_resolve": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P],
+    # rows, attrs, grid, ybounds, bounds, bins (scratch), out, B, T, P,
+    # width, n_layers, tile_p, chunk_t, stream
+    "tdt_peel_resolve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _P],
     # idx, tab, out, B, N, S, C, stream
     "tdt_select_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # idx, live, out, B, N, S, stream
@@ -66,9 +66,9 @@ SIGNATURES = {
     # p11, n_rows, stream
     "tdt_shade_portal": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _I, _F, _I, _P],
-    # rows, grid, out_z, out_id, B, T_pad, P, P_pad, n_layers, tile_p,
-    # chunk_t, stream
-    "tdt_depth_peel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # rows, grid, bins (scratch), out_z, out_id, B, T, P, width, n_layers,
+    # stream
+    "tdt_depth_peel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # records, words, cam, shear, dxz, sky, tex, hole, cmap, idx, cov,
     # B, R, W, H, n_words, hc, S1, holeless, p11, n_rows, ablate, zero,
     # stream

@@ -3,91 +3,133 @@
 // Replaces tpu_doom/ops/raster_pallas.py:depth_peel_pallas (kernel
 // _peel_kernel): the peel of the `jnp` triangle path (and of the
 // `portal_jnp` configuration's fallback), B3's peel without the resolve.
-// Ids are positions in the row order; each layer keeps, per pixel, the
-// lexicographically least (z, id) among the covering triangles that come
-// after the previous layer's. The arithmetic is the plain version's
-// (tpu_doom_torch/ops/raster.py:depth_peel_ref), built with --fmad=false;
-// the coverage test is B3's (peel.cuh).
+// Ids are positions in the row order; layer k holds, per pixel, the
+// (k+1)-th least (z, id) among the covering triangles, each with its own
+// z. The arithmetic is the plain version's
+// (tpu_doom_torch/ops/raster.py:depth_peel_ref), built with --fmad=false.
 //
-// Bound on the H100: operations. Every (pixel, triangle, layer) is one
-// coverage test of five 3-term dot products; at 8 envs x 64000 px x 224
-// triangles x 3 layers that is ~344 M tests, against ~6 MB of rows, grid
-// and output. Design: one block per (pixel tile, env), one thread per
-// pixel; each chunk of rows is staged in shared memory and read by every
-// thread as a broadcast; the running best (z, id) stays in registers.
+// Bound on the H100: bytes (the z and id planes written), unless a pixel
+// is covered by very many triangles: the function needs one coverage test
+// per covering (pixel, triangle) pair, five 3-term dot products each.
+//
+// Design (peel.cuh), two launches: the binning pass lists each 64 x 64
+// bin's rows that may cover it; then one block per 32 x 8 pixel tile and
+// env, one thread per pixel, one sweep over its bin's rows for up to 8
+// layers. Each group of 256 listed rows is loaded one row per thread,
+// culled exactly against the tile's box, and the survivors compacted into
+// shared memory; every thread then tests only those, and keeps its K
+// nearest (z, id) sorted in registers.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
 #include "peel.cuh"
 
 namespace {
 
-using peel::kMaxChunk;
+using peel::kEntry;
+using peel::kThreads;
 
 constexpr int kRowCols = 16;
 constexpr int kBigId = 1 << 30;
 
-__global__ void depth_peel_kernel(const float* __restrict__ rows,
-                                  const float* __restrict__ grid,
-                                  float* __restrict__ out_z,
-                                  int32_t* __restrict__ out_id, int T_pad,
-                                  int P, int P_pad, int n_layers,
-                                  int chunk_t) {
-  __shared__ float sh_rows[kMaxChunk * kRowCols];
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    depth_peel_kernel(const float* __restrict__ rows,
+                      const float* __restrict__ grid,
+                      const int* __restrict__ list,
+                      const int* __restrict__ count, float* __restrict__ out_z,
+                      int32_t* __restrict__ out_id, int T, int P, int width,
+                      int n_layers) {
+  __shared__ float4 stage[kThreads * kEntry];
+  __shared__ int counts[peel::kWarps];
+  __shared__ float red[peel::kWarps * 4];
+  const peel::Image im(width, P);
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int p = blockIdx.x * blockDim.x + tid;
   const float inf = __int_as_float(0x7f800000);
-  const float px = grid[p];
-  const float py = grid[P_pad + p];
-  const float* env_rows = rows + (size_t)b * T_pad * kRowCols;
+  int bin;
+  const int p = peel::tile_pixel(im, &bin);
+  const bool valid = p >= 0;
+  const float px = valid ? grid[p] : 0.0f, py = valid ? grid[P + p] : 0.0f;
+  if (!__syncthreads_or(valid)) return;  // no pixel of the image in this tile
+  float v[4] = {inf, inf, inf, inf};
+  peel::box_min(v, px, py, valid);
+  peel::block_min(v, red);
+  const peel::Box tile{v[0], -v[1], v[2], -v[3]};
 
+  const size_t cell = (size_t)b * im.bins + bin;
+  const int listed = count[cell];
+  const int* bin_rows = list + cell * T;
+  const float* env_rows = rows + (size_t)b * T * kRowCols;
   float prev_z = -inf;
   int prev_id = -1;
-  for (int layer = 0; layer < n_layers; ++layer) {
-    float best_z = inf;
-    int best_id = kBigId;
-    for (int c0 = 0; c0 < T_pad; c0 += chunk_t) {
-      __syncthreads();  // previous chunk's rows no longer in use
-      for (int i = tid; i < chunk_t * kRowCols; i += blockDim.x)
-        sh_rows[i] = env_rows[(size_t)c0 * kRowCols + i];
-      __syncthreads();
-      for (int t = 0; t < chunk_t; ++t) {
-        float z;
-        if (!peel::cover(sh_rows + t * kRowCols, px, py, &z)) continue;
-        const int id = c0 + t;
-        const bool after = (z > prev_z) || ((z == prev_z) && (id > prev_id));
-        if (after && (z < best_z || (z == best_z && id < best_id))) {
-          best_z = z;
-          best_id = id;
-        }
+  for (int k0 = 0; k0 < n_layers; k0 += D) {
+    peel::Layers<D, int> lay;
+    lay.clear(kBigId);
+    for (int g0 = 0; g0 < listed; g0 += kThreads) {
+      float4 e[kEntry];
+      bool keep = false;
+      if (g0 + (int)threadIdx.x < listed) {
+        const int r = bin_rows[g0 + threadIdx.x];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) e[k] = peel::row_quad(env_rows, kRowCols, r, k);
+        e[4] = make_float4(__int_as_float(r), 0.0f, 0.0f, 0.0f);
+        float s[16];
+        peel::unpack(e, s);
+        keep = peel::may_cover(s, tile);
+      }
+      const int n = peel::compact(keep, e, stage, counts);
+      for (int t = 0; t < n; ++t) {
+        const float4* q = stage + t * kEntry;
+        float s[16], z;
+        peel::unpack(q, s);
+        if (!peel::cover(s, px, py, &z)) continue;
+        const int id = __float_as_int(q[4].x);
+        if (peel::before(prev_z, prev_id, z, id)) lay.insert(z, id, id, kBigId);
       }
     }
-    if (p < P) {
-      const size_t o = ((size_t)b * n_layers + layer) * P + p;
-      out_z[o] = best_z;
-      out_id[o] = best_id;
+    if (valid) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        if (k0 + j >= n_layers) break;
+        const size_t o = ((size_t)b * n_layers + k0 + j) * P + p;
+        out_z[o] = lay.z[j];
+        out_id[o] = lay.id[j];
+      }
     }
-    prev_z = best_z;
-    prev_id = best_id;
+    prev_z = lay.z[D - 1];
+    prev_id = lay.id[D - 1];
   }
 }
 
 }  // namespace
 
-extern "C" int tdt_depth_peel(const void* rows, const void* grid, void* out_z,
-                              void* out_id, int B, int T_pad, int P, int P_pad,
-                              int n_layers, int tile_p, int chunk_t,
-                              void* stream) {
-  if (chunk_t < 1 || chunk_t > kMaxChunk || tile_p < 32 || tile_p > 1024 ||
-      tile_p % 32 != 0 ||
-      P_pad % tile_p != 0 || T_pad % chunk_t != 0)
+// bins: int scratch of B * bins * (T + 1) (counts, then lists), bins from
+// peel::Image.
+extern "C" int tdt_depth_peel(const void* rows, const void* grid, void* bins,
+                              void* out_z, void* out_id, int B, int T, int P,
+                              int width, int n_layers, void* stream) {
+  if (B < 1 || B > 65535 || T < 1 || P < 1 || width < 1 || n_layers < 1 ||
+      (uintptr_t)rows % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid_dim(P_pad / tile_p, B);
-  depth_peel_kernel<<<grid_dim, tile_p, 0, (cudaStream_t)stream>>>(
-      (const float*)rows, (const float*)grid, (float*)out_z, (int32_t*)out_id,
-      T_pad, P, P_pad, n_layers, chunk_t);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const peel::Image im(width, P);
+  int* count = (int*)bins;
+  int* list = count + (size_t)B * im.bins;
+  peel::bin_kernel<kRowCols><<<dim3(im.bins, B), kThreads, 0, s>>>(
+      (const float*)rows, (const float*)grid, list, count, T, P, width);
+  const dim3 grid_dim(im.tiles(), B);
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid_dim, kThreads, 0, s>>>(
+        (const float*)rows, (const float*)grid, list, count, (float*)out_z,
+        (int32_t*)out_id, T, P, width, n_layers);
+  };
+  switch (peel::sweep_depth(n_layers)) {
+    case 1: launch(depth_peel_kernel<1>); break;
+    case 2: launch(depth_peel_kernel<2>); break;
+    case 3: launch(depth_peel_kernel<3>); break;
+    case 4: launch(depth_peel_kernel<4>); break;
+    default: launch(depth_peel_kernel<peel::kMaxDepth>); break;
+  }
   return (int)cudaGetLastError();
 }

@@ -27,10 +27,15 @@ window-y bounds miss the pixel tile, then the winner's interpolated
 uv / w and flat attributes. The resolve is a direct load of the winning
 row (the TPU kernel's one-hot matmul sums the row with zeros, which
 `+ 0.0` reproduces).
-CUDA design (csrc/peel_resolve.cu): one block per (pixel tile, env), one
-thread per pixel; each overlapping chunk's rows are staged in shared
-memory; per-pixel (z, id, position) of the running best stay in
-registers. Bound: T x P coverage tests per layer (compute).
+CUDA design (csrc/peel_resolve.cu, csrc/peel.cuh): a first launch
+computes the window-y cull's bounds, a second lists the rows that may
+cover each 64 x 64 bin; then one block per 32 x 8 pixel tile and env, one
+thread per pixel, one sweep over its bin's rows for up to 8 layers: each
+pixel keeps its K nearest (z, id, position) sorted in registers, which
+are the iterative peel's K layers. Rows are culled per bin and tile
+exactly (`_peel_may_cover` mirrors the test) and a tile's survivors
+compacted into shared memory; each pixel also applies the plain version's
+y-cull as the plain version does. Bound: the output bytes.
 
 B4, B5 and B6 serve the big-level walk (render/portal.py):
 B4 `select_rows` replaces `raster_pallas.py:select_rows_pallas`, the exact
@@ -55,7 +60,8 @@ pixels, csrc/shade_portal.cu): `raster_backend="portal_jnp"` runs B7 then
 B8 on every frame. B2, B7 and B8 share their device code
 (csrc/portal_shade.cuh) and, here, `_classify` and `_shade_address`.
 B9 `depth_peel` replaces `depth_peel_pallas` (B3's peel without the
-resolve, ids by row position, csrc/depth_peel.cu): the peel of
+resolve, ids by row position, csrc/depth_peel.cu on B3's core in
+csrc/peel.cuh): the peel of
 `raster_backend="jnp"`, which is also `portal_jnp`'s fallback.
 
 Every wrapper takes the plain version for CPU tensors and launches the
@@ -421,6 +427,9 @@ shade_portal.launches = 0
 # B3: depth peel + resolve.
 # ---------------------------------------------------------------------------
 
+PEEL_TILE_W, PEEL_TILE_H = 32, 8  # csrc/peel.cuh kTileW, kTileH
+PEEL_BIN = 64  # csrc/peel.cuh kBin
+
 
 def _peel_cover(rows, px, py):
     """Coverage of every pixel by every triangle row (B3 and B9): rows
@@ -439,28 +448,69 @@ def _peel_cover(rows, px, py):
     return cover, z
 
 
-def _pad_peel_inputs(rows, attrs, grid, ybounds, tile_p, chunk_t):
-    """Pad triangles to whole chunks (padded ones never overlap a tile)
-    and pixels to whole tiles; returns padded inputs + (B, n_chunks, 2)
-    chunk y-bounds, as `peel_resolve_pallas` does."""
-    B, T, _ = rows.shape
+def _peel_may_cover(rows, boxes):
+    """The kernels' tile cull (csrc/peel.cuh:may_cover), for the tests and
+    chip_smoke: rows (T, 16+), boxes (N, 4) [x0, x1, y0, y1] bounding each
+    tile's pixel centres -> (T, N) bool, False only where `_peel_cover` is
+    False at every pixel centre in the box. Each affine term is taken at
+    the corner where it is largest (least, for z's lower end); rounding is
+    monotone, so no pixel of the box exceeds it."""
+    s = rows[:, :, None]
+    x0, x1, y0, y1 = (boxes[None, :, i] for i in range(4))
+
+    def most(i):
+        a, b = s[:, i], s[:, i + 1]
+        return (a * torch.where(a >= 0.0, x1, x0) + b * torch.where(b >= 0.0, y1, y0)
+                + s[:, i + 2])
+
+    def least(i):
+        a, b = s[:, i], s[:, i + 1]
+        return (a * torch.where(a >= 0.0, x0, x1) + b * torch.where(b >= 0.0, y0, y1)
+                + s[:, i + 2])
+
+    return ((s[:, 15] > 0.0) & ~(most(0) < 0.0) & ~(most(3) < 0.0) & ~(most(6) < 0.0)
+            & ~(most(12) <= 0.0) & ~(least(9) > 1.0) & ~(most(9) < -1.0))
+
+
+def _peel_tile_boxes(grid, width: int, w: int = PEEL_TILE_W, h: int = PEEL_TILE_H):
+    """The kernels' cull boxes: the image `width` pixels wide in row-major
+    w x h tiles (csrc/peel.cuh:Image; a block's 32 x 8 tile, or a 64 x 64
+    bin of the binning pass) -> (tile of each pixel (P,) int64, boxes
+    (N, 4) [x0, x1, y0, y1] of each tile's pixel centres; inf / -inf for a
+    tile that holds no pixel)."""
     P = grid.shape[1]
+    p = torch.arange(P, device=grid.device)
+    tiles_x, img_rows = -(-width // w), -(-P // width)
+    n = tiles_x * -(-img_rows // h)
+    tile = (p // width // h) * tiles_x + (p % width) // w
+    inf = torch.full((n,), INF, dtype=grid.dtype, device=grid.device)
+    lo = [inf.scatter_reduce(0, tile, grid[i], "amin") for i in (0, 1)]
+    hi = [(-inf).scatter_reduce(0, tile, grid[i], "amax") for i in (0, 1)]
+    return tile, torch.stack([lo[0], hi[0], lo[1], hi[1]], dim=1)
+
+
+def _chunk_ybounds(ybounds, chunk_t: int):
+    """(B, T, 2) window-y bounds -> (B, ceil(T / chunk_t), 2) [least ymin,
+    largest ymax] of each chunk of chunk_t rows (the last chunk padded
+    with rows that overlap no tile), as `peel_resolve_pallas` does."""
+    B, T, _ = ybounds.shape
     pad_t = (-T) % chunk_t
     if pad_t:
-        rows = torch.nn.functional.pad(rows, (0, 0, 0, pad_t))
-        attrs = torch.nn.functional.pad(attrs, (0, 0, 0, pad_t))
         pad_b = torch.empty((B, pad_t, 2), dtype=ybounds.dtype, device=ybounds.device)
         pad_b[..., 0] = INF
         pad_b[..., 1] = -INF
         ybounds = torch.cat([ybounds, pad_b], dim=1)
-    pad_p = (-P) % tile_p
-    if pad_p:
-        grid = torch.nn.functional.pad(grid, (0, pad_p))
-    n_chunks = (T + pad_t) // chunk_t
-    cb = ybounds.reshape(B, n_chunks, chunk_t, 2)
-    chunk_bounds = torch.stack(
-        [cb[..., 0].amin(dim=2), cb[..., 1].amax(dim=2)], dim=-1)
-    return rows, attrs, grid, chunk_bounds
+    cb = ybounds.reshape(B, (T + pad_t) // chunk_t, chunk_t, 2)
+    return torch.stack([cb[..., 0].amin(dim=2), cb[..., 1].amax(dim=2)], dim=-1)
+
+
+def _tile_ybounds(grid, tile_p: int):
+    """(ceil(P / tile_p), 2) [least py - 1, largest py + 1] of each run of
+    tile_p pixels of the grid padded with zeros: the window-y range B3's
+    y-cull gives the run's pixels."""
+    pyt = torch.nn.functional.pad(grid[1], (0, (-grid.shape[1]) % tile_p))
+    pyt = pyt.reshape(-1, tile_p)
+    return torch.stack([pyt.amin(dim=1) - 1.0, pyt.amax(dim=1) + 1.0], dim=-1)
 
 
 def peel_resolve_ref(rows, attrs, grid, ybounds, n_layers: int,
@@ -468,20 +518,22 @@ def peel_resolve_ref(rows, attrs, grid, ybounds, n_layers: int,
     """Plain version of B3. rows (B, T, 24), attrs (B, T, 16), grid
     (3, P), ybounds (B, T, 2) -> (B, K, 16, P) f32 channels
     [z, uvx, uvy, w, tsx, tsy, bax, bay, bbx, bby, light, pass,
-    transparent, has, 0, 0]."""
+    transparent, has, 0, 0]. A chunk of chunk_t rows is tested against a
+    run of tile_p pixels only where their window-y bounds overlap."""
     B, T, _ = rows.shape
     P = grid.shape[1]
-    rows, attrs, grid, chunk_bounds = _pad_peel_inputs(
-        rows, attrs, grid, ybounds, tile_p, chunk_t)
-    Tp, Pp = rows.shape[1], grid.shape[1]
+    chunk_bounds = _chunk_ybounds(ybounds, chunk_t)
+    tile_bounds = _tile_ybounds(grid, tile_p)
+    pad_t, pad_p = (-T) % chunk_t, (-P) % tile_p
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, pad_t))
+    attrs = torch.nn.functional.pad(attrs, (0, 0, 0, pad_t))
+    grid = torch.nn.functional.pad(grid, (0, pad_p))
+    Tp, Pp = T + pad_t, P + pad_p
     dev = rows.device
     px, py = grid[0][None, :], grid[1][None, :]  # (1, Pp)
-    pyt = grid[1].reshape(-1, tile_p)
-    py_min = pyt.amin(dim=1) - 1.0
-    py_max = pyt.amax(dim=1) + 1.0
     # (B, n_chunks, n_tiles): may this chunk cover a pixel of the tile?
-    overlap = ((chunk_bounds[..., 0, None] <= py_max)
-               & (chunk_bounds[..., 1, None] >= py_min))
+    overlap = ((chunk_bounds[..., 0, None] <= tile_bounds[:, 1])
+               & (chunk_bounds[..., 1, None] >= tile_bounds[:, 0]))
     chunk_of_t = torch.arange(Tp, device=dev) // chunk_t
     tile_of_p = torch.arange(Pp, device=dev) // tile_p
     out = torch.zeros((B, n_layers, OUT_CHANNELS, Pp), dtype=torch.float32, device=dev)
@@ -520,9 +572,26 @@ def peel_resolve_ref(rows, attrs, grid, ybounds, n_layers: int,
     return out[..., :P]
 
 
+def _bin_scratch(B: int, T: int, P: int, width: int, device):
+    """The binning pass's int scratch: per env and 64 x 64 bin a count, then
+    per env and bin a list of up to T rows (csrc/peel.cuh:bin_kernel)."""
+    img_rows = -(-P // width)
+    bins = -(-width // PEEL_BIN) * -(-img_rows // PEEL_BIN)
+    return torch.empty((B * bins * (T + 1),), dtype=torch.int32, device=device)
+
+
+def _aligned16(t):
+    """t, or a copy of it whose data starts on a 16-byte boundary (the
+    kernels read rows as float4)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def peel_resolve(rows, attrs, grid, ybounds, n_layers: int,
-                 tile_p: int = 512, chunk_t: int = 128):
-    """Kernel B3 for CUDA tensors, its plain version for CPU tensors."""
+                 tile_p: int = 512, chunk_t: int = 128, *, width: int):
+    """Kernel B3 for CUDA tensors, its plain version for CPU tensors.
+    `width` is the image width of the grid's index map
+    (render/raster.py:pixel_grid): it shapes the kernel's pixel tiles and
+    never the result."""
     if rows.device.type == "cpu":
         return peel_resolve_ref(rows, attrs, grid, ybounds, n_layers,
                                 tile_p, chunk_t)
@@ -531,22 +600,24 @@ def peel_resolve(rows, attrs, grid, ybounds, n_layers: int,
     B, T, c = rows.shape
     P = grid.shape[1]
     if (c != ROWS_COLS or attrs.shape != (B, T, ATTR_COLS) or grid.shape[0] != 3
-            or ybounds.shape != (B, T, 2)):
+            or ybounds.shape != (B, T, 2) or T < 1):
         raise ValueError("peel_resolve: bad shapes")
-    if not (32 <= tile_p <= 1024 and tile_p % 32 == 0) or chunk_t < 1:
-        raise ValueError("peel_resolve: tile_p must be a multiple of 32 in [32, 1024]")
-    rows, attrs, grid, chunk_bounds = _pad_peel_inputs(
-        rows.float(), attrs.float(), grid.float(), ybounds.float(), tile_p, chunk_t)
-    rows, attrs, grid, chunk_bounds = (
-        t.contiguous() for t in (rows, attrs, grid, chunk_bounds))
-    out = torch.empty((B, n_layers, OUT_CHANNELS, P), dtype=torch.float32,
-                      device=rows.device)
-    lib = load()
-    check(lib.tdt_peel_resolve(
-        rows.data_ptr(), attrs.data_ptr(), grid.data_ptr(),
-        chunk_bounds.data_ptr(), out.data_ptr(), B, rows.shape[1], P,
-        grid.shape[1], int(n_layers), int(tile_p), int(chunk_t),
-        torch.cuda.current_stream(rows.device).cuda_stream,
+    if tile_p < 1 or chunk_t < 1 or n_layers < 1 or width < 1:
+        raise ValueError("peel_resolve: tile_p, chunk_t, n_layers and width must be >= 1")
+    rows = _aligned16(rows.float().contiguous())
+    attrs, grid, ybounds = (t.float().contiguous() for t in (attrs, grid, ybounds))
+    dev = rows.device
+    # Scratch for the kernel's window-y bounds (`_tile_ybounds`, then
+    # `_chunk_ybounds`), which it computes in a first launch, and its bins.
+    bounds = torch.empty((-(-P // tile_p) + B * -(-T // chunk_t), 2),
+                         dtype=torch.float32, device=dev)
+    bins = _bin_scratch(B, T, P, width, dev)
+    out = torch.empty((B, n_layers, OUT_CHANNELS, P), dtype=torch.float32, device=dev)
+    check(load().tdt_peel_resolve(
+        rows.data_ptr(), attrs.data_ptr(), grid.data_ptr(), ybounds.data_ptr(),
+        bounds.data_ptr(), bins.data_ptr(), out.data_ptr(), B, T, P, int(width),
+        int(n_layers), int(tile_p), int(chunk_t),
+        torch.cuda.current_stream(dev).cuda_stream,
     ), "peel_resolve")
     peel_resolve.launches += 1
     return out
@@ -560,7 +631,6 @@ peel_resolve.launches = 0
 # ---------------------------------------------------------------------------
 
 PEEL_COLS = 16
-MAX_CHUNK = 128  # csrc/peel.cuh kMaxChunk
 
 
 def pack_triangle_rows(e, det, vz, vs):
@@ -573,14 +643,11 @@ def pack_triangle_rows(e, det, vz, vs):
     return torch.cat([flat_e, zr, vs, valid[..., None]], dim=-1)
 
 
-def depth_peel_ref(rows, grid, n_layers: int, tile_p: int = 512,
-                   chunk_t: int = 128):
+def depth_peel_ref(rows, grid, n_layers: int):
     """Plain version of B9: rows (B, T, 16), grid (3, P) -> (z (B, K, P)
     f32, id (B, K, P) i32). Layer k holds, per pixel, the least (z, id)
     in lexicographic order among the covering triangles after layer k-1's;
-    ids are row positions; an empty pixel has z = inf, id = BIG_ID.
-    tile_p and chunk_t only shape the kernel's launch."""
-    del tile_p, chunk_t
+    ids are row positions; an empty pixel has z = inf, id = BIG_ID."""
     B, T, _ = rows.shape
     P = grid.shape[1]
     dev = rows.device
@@ -607,29 +674,28 @@ def depth_peel_ref(rows, grid, n_layers: int, tile_p: int = 512,
     return z_out, id_out
 
 
-def depth_peel(rows, grid, n_layers: int, tile_p: int = 512, chunk_t: int = 128):
-    """Kernel B9 for CUDA tensors, its plain version for CPU tensors."""
+def depth_peel(rows, grid, n_layers: int, *, width: int):
+    """Kernel B9 for CUDA tensors, its plain version for CPU tensors.
+    `width` shapes the kernel's pixel tiles only, as for `peel_resolve`."""
     if rows.device.type == "cpu":
-        return depth_peel_ref(rows, grid, n_layers, tile_p, chunk_t)
+        return depth_peel_ref(rows, grid, n_layers)
     if rows.device.type != "cuda":
         raise ValueError(f"depth_peel: unsupported device {rows.device}")
     B, T, c = rows.shape
     P = grid.shape[1]
     if c != PEEL_COLS or grid.shape[0] != 3 or T < 1:
         raise ValueError("depth_peel: bad shapes")
-    if not (32 <= tile_p <= 1024 and tile_p % 32 == 0) or not 1 <= chunk_t <= MAX_CHUNK:
-        raise ValueError("depth_peel: tile_p must be a multiple of 32 in [32, 1024]"
-                         f" and chunk_t in [1, {MAX_CHUNK}]")
-    # Padded rows are invalid (column 15 = 0) and never cover a pixel.
-    rows = torch.nn.functional.pad(rows.float(), (0, 0, 0, (-T) % chunk_t)).contiguous()
-    grid = torch.nn.functional.pad(grid.float(), (0, (-P) % tile_p)).contiguous()
+    if n_layers < 1 or width < 1:
+        raise ValueError("depth_peel: n_layers and width must be >= 1")
+    rows = _aligned16(rows.float().contiguous())
+    grid = grid.float().contiguous()
     dev = rows.device
     z = torch.empty((B, n_layers, P), dtype=torch.float32, device=dev)
     ids = torch.empty((B, n_layers, P), dtype=torch.int32, device=dev)
+    bins = _bin_scratch(B, T, P, width, dev)
     check(load().tdt_depth_peel(
-        rows.data_ptr(), grid.data_ptr(), z.data_ptr(), ids.data_ptr(), B,
-        rows.shape[1], P, grid.shape[1], int(n_layers), int(tile_p),
-        int(chunk_t), torch.cuda.current_stream(dev).cuda_stream,
+        rows.data_ptr(), grid.data_ptr(), bins.data_ptr(), z.data_ptr(), ids.data_ptr(),
+        B, T, P, int(width), int(n_layers), torch.cuda.current_stream(dev).cuda_stream,
     ), "depth_peel")
     depth_peel.launches += 1
     return z, ids

@@ -492,8 +492,7 @@ def render_frames_jnp(scene, cfg, state, width: int, height: int):
     grid = pixel_grid(width, height, state.pos.device)
     prep = prepare(scene, cfg, width, height, state)
     rows = pack_triangle_rows(prep["e"], prep["det"], prep["vz"], prep["vs"])
-    z, ids = depth_peel(rows, grid, max(int(cfg.depth_layers), 1),
-                        tile_p=cfg.raster_tile_p, chunk_t=cfg.raster_chunk_t)
+    z, ids = depth_peel(rows, grid, max(int(cfg.depth_layers), 1), width=width)
     best = winner_from_layers(scene, prep, z, ids, grid)
     idx, cov = shade(scene, width, height, prep, best, grid)
     return idx.reshape(B, height, width), cov.reshape(B, height, width)
@@ -508,7 +507,8 @@ def render_frames(scene, cfg, state, width: int, height: int):
     B = state.pos.shape[0]
     rows, attrs, grid, ybounds, pvm = peel_inputs(scene, cfg, width, height, state)
     channels = peel_resolve(rows, attrs, grid, ybounds, max(int(cfg.depth_layers), 1),
-                            tile_p=cfg.raster_tile_p, chunk_t=cfg.raster_chunk_t)
+                            tile_p=cfg.raster_tile_p, chunk_t=cfg.raster_chunk_t,
+                            width=width)
     idx, cov = shade_from_channels(scene, width, height, channels, pvm, grid)
     return idx.reshape(B, height, width), cov.reshape(B, height, width)
 

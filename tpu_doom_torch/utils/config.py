@@ -68,9 +68,12 @@ class GameConfig:
     # "portal"|"portal_jnp"|"auto"|"jnp" (see
     # render.raster.check_raster_backend for what each runs)
     raster_backend: str = "auto"
-    # Launch shape of the triangle-path kernels B3 and B9: pixels per
-    # block tile (a multiple of 32 up to 1024) and triangles per y-culled
-    # chunk.
+    # B3's window-y cull (render_frames' "auto" path): a chunk of
+    # raster_chunk_t consecutive y-sorted triangles is tested against a
+    # run of raster_tile_p consecutive pixels only where their window-y
+    # bounds overlap. Both the plain version and the kernel apply it per
+    # pixel, so it shapes no launch: B3 and B9 render fixed 32 x 32 pixel
+    # tiles (csrc/peel.cuh). B9 (the "jnp" path) reads neither.
     raster_tile_p: int = 1024
     raster_chunk_t: int = 64
     # Portal renderer: max ray/seg crossings walked per column.
