@@ -26,8 +26,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
      on :texstress: at 320x200 x 256 envs after 8 bench ticks, from the
      port's own walk: B4 and B2 on the global table (records (256, 120,
      16, 320)) at shipped defaults, B6, B5 and B2's per-env mode with
-     portal_global_segs_max=1024 (all bitwise); B1 on :texstress:'s rows
-     (bitwise, with their M).
+     portal_global_segs_max=1024 (all bitwise; B6 and torch.scatter_add
+     also as runs of 10 launches captured in a CUDA graph, the device time
+     without the wrapper's host share); B1 on :texstress:'s rows (bitwise,
+     with their M).
   4. tools: the kernels of the port's two instruments, which no main-path
      segment runs (their launch counts there stay 0). B10
      (tools/onehotbench.py): ldg, smem and copy bitwise against the plain
@@ -48,24 +50,40 @@ Phases, each printed on its own lines; any failure exits non-zero:
      tests/golden/verify_texstress_ref.npz at 320x200 in both texel
      configs and under portal_jnp (all made by the JAX package).
   6. main path: every segment runs with the launch counts set to 0 just
-     before it and read just after:
-     bench: DoomSim on :test: at 320x200 x 256 envs, bench actions, 8
-       warm-up ticks, then 5 windows of 32 timed ticks of step + render;
-       env*frames/s per window, their median and spread, and the
-       process's CPU ms per tick beside the wall ms;
-     fallback: 4 ticks with portal_pitch="triangle" and half the envs
-       pitched, so the triangle path (B3) runs inside the main path (the
-       bench trajectory never overflows the crossing budget);
-     oracle, oracle_fallback: the same with raster_backend="portal_jnp"
-       (B7 and B8 every frame; 4 warm-up ticks, 3 windows of 8 ticks),
-       and its fallback through the jnp triangle path (B9);
+     before it and read just after; each eager segment (step_render) is
+     followed, where named, by its `rollout_` twin through
+     DoomSim.rollout: the tick captured as CUDA graphs and replayed, its
+     first 8 replayed ticks held bitwise to 8 eager ones (frames and final
+     state), its timed windows under torch.cuda.set_sync_debug_mode("error")
+     (a host synchronisation inside rollout fails the run), its
+     env*frames/s printed beside the eager median with the kernel launches
+     per replay (replays add their launches to the counts; the triangle
+     fallback's, a conditional node, are counted on the device where it
+     ran); the share of envs on the triangle fallback is read from a device
+     tally after each segment:
+     bench, rollout: DoomSim on :test: at 320x200 x 256 envs, bench
+       actions, 8 warm-up ticks, then 5 windows of 32 timed ticks of step
+       + render; env*frames/s per window, their median and spread, and
+       the process's CPU ms per tick beside the wall ms; then the same
+       through rollout, and (fallback_form, not a segment) rollout with
+       the triangle path over every env on every tick instead of the
+       conditional node, timed beside it;
+     fallback, rollout_fallback: 4 ticks with portal_pitch="triangle" and
+       half the envs pitched, so the triangle path (B3) runs inside the
+       main path (the bench trajectory never overflows the crossing
+       budget), eager and replayed;
+     oracle_fallback, rollout_oracle_fallback: the same under
+       raster_backend="portal_jnp", through the jnp triangle path (B9);
+     oracle, rollout_oracle: raster_backend="portal_jnp" (B7 and B8 every
+       frame; 4 warm-up ticks, 3 windows of 8 ticks);
      texstress_fallback, texstress_oracle_fallback: both fallbacks on
        :texstress: (B3, B9 on a maze's triangles);
-     texstress, texstress_act: DoomSim on :texstress: at 320x200 x 256
-       envs, bench actions, at shipped defaults (the big-level walk with
-       B4) and with portal_global_segs_max=1024 (the active-set path: B6,
-       B5, B2 per env); 4 warm-up ticks, then 3 windows of 8 ticks, with
-       the share of envs that fell back to the triangle path per tick.
+     texstress, texstress_act, rollout_texstress_act: DoomSim on
+       :texstress: at 320x200 x 256 envs, bench actions, at shipped
+       defaults (the big-level walk with B4) and with
+       portal_global_segs_max=1024 (the active-set path: B6, B5, B2 per
+       env; also replayed, and its fallback_form timed); 4 warm-up ticks,
+       then 3 windows of 8 ticks.
 The last two lines: the kernels' JSON summary (launches summed over the
 main-path segments, and per segment), then the device JSON.
 Imports neither JAX nor the JAX package: the GPU machine has neither.
@@ -87,6 +105,7 @@ B_MAIN, W_MAIN, H_MAIN = 256, 320, 200
 WARMUP_TICKS, TIMED_TICKS, WINDOWS, FALLBACK_TICKS = 8, 32, 5, 4
 TEX_WAD, TEX_CAP = ":texstress:", 1024  # portal_global_segs_max of the active set
 TEX_WARMUP, TEX_TICKS, TEX_WINDOWS = 4, 8, 3
+EQUAL_TICKS = 8  # replayed ticks held bitwise to eager ones per rollout segment
 TIMING_CALLS = 20
 BACK_TO_BACK = 10  # kernel launches per pair of CUDA events
 PX_CEILING = 16  # per-frame mismatch ceiling of the verify legs (bench.py:90)
@@ -199,6 +218,25 @@ def time_ms(fn, calls=TIMING_CALLS, per_pair=1, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / per_pair)
     return float(np.median(times))
+
+
+def graph_ms(fn):
+    """Median ms per call of BACK_TO_BACK calls of `fn` captured as one
+    CUDA graph, over TIMING_CALLS replays: the device time of back-to-back
+    launches without the host's share. The launches the capture records
+    run no kernel, so the launch counts are set back."""
+    from tpu_doom_torch.ops import add_launches, host_launch_counts
+
+    fn()
+    torch.cuda.synchronize()
+    before = host_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(BACK_TO_BACK):
+            fn()
+    after = host_launch_counts()
+    add_launches({k: before[k] - after[k] for k in after})
+    return time_ms(graph.replay) / BACK_TO_BACK
 
 
 def kernel_ms(fn):
@@ -862,9 +900,13 @@ def phase_kernels_texstress(results):
     ok = (sidx >= 0) & (sidx < n_rows)
     sl_idx, sl_live = torch.where(ok, sidx, 0).long(), torch.where(ok, live, 0.0)
     zeros = torch.zeros((sidx.shape[0], n_rows), dtype=torch.float32, device=sidx.device)
-    lib = time_ms(lambda: torch.scatter_add(zeros, 1, sl_idx, sl_live))
+    lib, lib_b2b = kernel_ms(lambda: torch.scatter_add(zeros, 1, sl_idx, sl_live))
+    graph_b2b = graph_ms(lambda: scatter_live(sidx, live, n_rows))
+    lib_graph = graph_ms(lambda: torch.scatter_add(zeros, 1, sl_idx, sl_live))
+    print(f"[kernel] B6 back to back inside a CUDA graph (device time, no wrapper):"
+          f" {graph_b2b:.4f} ms; torch.scatter_add {lib_graph:.4f} ms")
     record(results, "scatter_live", err, ms, b2b, plain, nbytes(sidx, live, got),
-           library_ms=lib)
+           library_ms=lib, library_ms_b2b=lib_b2b)
 
     meta, tex_full, act = gc[0]
     got, want = gather_cells(meta, tex_full, act), gather_cells_ref(meta, tex_full, act)
@@ -1085,22 +1127,24 @@ def fallback_sim(**kw):
     return sim, state._replace(pitch=pitch), bench_actions(sim, B_MAIN)
 
 
-def run_ticks(sim, state, acts, ticks, fell=None):
+def run_ticks(sim, state, acts, ticks):
     """`ticks` ticks of step + render -> (state, checksum, coverage sum)
-    as device scalars; `fell` collects the envs that took the triangle
-    fallback per tick."""
-    from tpu_doom_torch.render import portal as P
-
+    as device scalars."""
     check = torch.zeros((), dtype=torch.int64, device=sim.device)
     cov_sum = torch.zeros((), dtype=torch.float64, device=sim.device)
     for _ in range(ticks):
-        with captured(P, "render_frames") as fb:
-            state, idx, cov = sim.step_render(state, acts)
-        if fell is not None:
-            fell.append(sum(int(c[2].pos.shape[0]) for c in fb))
+        state, idx, cov = sim.step_render(state, acts)
         check += idx.sum(dtype=torch.int64)
         cov_sum += cov.sum(dtype=torch.float64)
     return state, check, cov_sum
+
+
+def fallback_share(ticks):
+    """Envs on the triangle fallback per env and tick since the tally was
+    zeroed (read from the device: synchronises)."""
+    from tpu_doom_torch.render import portal as P
+
+    return int(P.fallback_tally("cuda")) / (ticks * B_MAIN)
 
 
 def timed_segment(tag, label, sim, state, acts, windows, ticks, needed):
@@ -1110,13 +1154,16 @@ def timed_segment(tag, label, sim, state, acts, windows, ticks, needed):
     coverage and the share of envs on the triangle fallback per tick;
     requires each `needed` kernel to have run every tick. Returns the
     launch counts."""
+    from tpu_doom_torch.render import portal as P
+
     reset_counts()
+    P.fallback_tally("cuda").zero_()
     check = torch.zeros((), dtype=torch.int64, device=sim.device)
     cov_sum = torch.zeros((), dtype=torch.float64, device=sim.device)
-    rates, fell = [], []
+    rates = []
     for w in range(windows):
         t0, c0 = time.perf_counter(), time.process_time()
-        state, c, cs = run_ticks(sim, state, acts, ticks, fell)
+        state, c, cs = run_ticks(sim, state, acts, ticks)
         torch.cuda.synchronize()
         dt, cpu = time.perf_counter() - t0, time.process_time() - c0
         check += c
@@ -1128,18 +1175,18 @@ def timed_segment(tag, label, sim, state, acts, windows, ticks, needed):
               f" {rates[-1]:.1f} env*frames/s")
     counts = read_counts()
     coverage = float(cov_sum) / (windows * ticks * B_MAIN * W_MAIN * H_MAIN)
-    share = [round(f / B_MAIN, 4) for f in fell]
+    median = float(np.median(rates))
     print(f"[{tag}] {label}, {windows} windows of {ticks} ticks of step + render:"
-          f" median {float(np.median(rates)):.1f} env*frames/s (min"
+          f" median {median:.1f} env*frames/s (min"
           f" {min(rates):.1f}, max {max(rates):.1f}); checksum {int(check)},"
           f" coverage {coverage:.4f}; share of envs on the triangle fallback per"
-          f" tick {share}; launches {counts}")
+          f" tick {fallback_share(windows * ticks):.4f}; launches {counts}")
     for name in needed:
         require(counts[name] >= windows * ticks, f"{tag}: {name} did not run every tick")
     require(int(check) > 0 and bool(torch.isfinite(state.pos).all()),
             f"{tag}: frames are all zero or the state is not finite")
     require(coverage > 0.5, f"{tag}: coverage {coverage} <= 0.5")
-    return counts
+    return counts, median
 
 
 def fallback_segment(tag, sim, state, acts, needed):
@@ -1159,50 +1206,183 @@ def fallback_segment(tag, sim, state, acts, needed):
           f" ms/tick wall, no warm-up tick): launches {counts}, coverage {coverage:.4f}")
     require(counts[needed] > 0, f"{tag}: {needed} did not run in the fallback")
     require(coverage > 0.5, f"{tag}: coverage {coverage} <= 0.5")
-    return counts
+    return counts, B_MAIN * FALLBACK_TICKS / dt
+
+
+def action_seq(acts, n):
+    """The (n, B, ...) sequence of `acts` repeated n times, on the card."""
+    from tpu_doom_torch.sim.state import Actions
+
+    return Actions(*(x.expand((n,) + x.shape).contiguous() for x in acts))
+
+
+def rollout_segment(tag, label, sim, state, acts, windows, ticks, needed, eager):
+    """A main-path segment through `DoomSim.rollout`, the captured tick
+    replayed: first EQUAL_TICKS replayed ticks against as many eager
+    step_render ticks, bitwise in frames and final state (this also
+    captures the graphs); then, with the launch counts set to 0,
+    `windows` timed rollouts of `ticks` ticks, each under
+    torch.cuda.set_sync_debug_mode("error"), so that any host
+    synchronisation inside rollout fails the run. Prints env*frames/s
+    beside the eager segment's `eager`, the kernel launches per replayed
+    tick, and the share of envs on the triangle fallback; requires each
+    `needed` kernel to have run every tick. Returns (launch counts,
+    median env*frames/s)."""
+    seq = action_seq(acts, EQUAL_TICKS)
+    got_state, got = sim.rollout(state, seq, EQUAL_TICKS)
+    s, want = state, []
+    for _ in range(EQUAL_TICKS):
+        s, idx, _ = sim.step_render(s, acts)
+        want.append(idx)
+    same_frames = torch.equal(got, torch.stack(want))
+    same_state = all(torch.equal(a, b) for a, b in zip(got_state, s))
+    print(f"[{tag}] {EQUAL_TICKS} replayed ticks against {EQUAL_TICKS} eager ticks:"
+          f" frames bitwise equal {same_frames}, final state bitwise equal {same_state}")
+    require(same_frames and same_state, f"{tag}: the replayed ticks differ from eager ones")
+    del got, want, got_state, s
+
+    from tpu_doom_torch.render import portal as P
+
+    seq = action_seq(acts, ticks)
+    reset_counts()
+    P.fallback_tally("cuda").zero_()
+    check = torch.zeros((), dtype=torch.int64, device=sim.device)
+    rates = []
+    for w in range(windows):
+        t0, c0 = time.perf_counter(), time.process_time()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, frames = sim.rollout(state, seq, ticks)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        dt, cpu = time.perf_counter() - t0, time.process_time() - c0
+        check += frames.sum(dtype=torch.int64)
+        rates.append(B_MAIN * ticks / dt)
+        print(f"[{tag}] window {w}: rollout of {ticks} ticks in {dt:.4f} s,"
+              f" {dt * 1e3 / ticks:.4f} ms/tick wall, {cpu * 1e3 / ticks:.4f} ms/tick"
+              f" process CPU: {rates[-1]:.1f} env*frames/s")
+    counts = read_counts()
+    tick = sim.tick_graphs().ticks[("render", B_MAIN, W_MAIN, H_MAIN)]
+    median = float(np.median(rates))
+    print(f"[{tag}] {label}, rollout (captured ticks replayed, no host"
+          f" synchronisation inside), {windows} windows of {ticks} ticks: median"
+          f" {median:.1f} env*frames/s (min {min(rates):.1f}, max {max(rates):.1f})"
+          f" against the eager {eager:.1f}, {median / eager:.3f}x; kernel launches per"
+          f" replayed tick {tick.launches}, the fallback's {[b.launches for b in tick.bodies]}"
+          f" when it runs; share of envs on the triangle fallback per tick"
+          f" {fallback_share(windows * ticks):.4f}; checksum {int(check)}; launches {counts}")
+    for name in needed:
+        require(counts[name] >= windows * ticks, f"{tag}: {name} did not run every tick")
+    require(int(check) > 0 and bool(torch.isfinite(state.pos).all()),
+            f"{tag}: frames are all zero or the state is not finite")
+    return counts, median
+
+
+@contextlib.contextmanager
+def fallback_every_tick():
+    """Captures made inside take the triangle path over every env on every
+    tick, merged by torch.where (`graphs.device_if` as a plain block): the
+    form of the fallback that needs no conditional node, timed beside it."""
+    from tpu_doom_torch import graphs
+
+    orig = graphs.device_if
+    graphs.device_if = lambda pred: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        graphs.device_if = orig
+
+
+def time_unconditional_fallback(tag, label, graph_rate, **kw):
+    """The rollout of `kw`'s sim with the triangle path over every env on
+    every tick, against `graph_rate` (the conditional node's): env*frames/s
+    over TEX_WINDOWS windows of TEX_TICKS ticks, and the frames bitwise
+    equal to the eager ones."""
+    sim = make_sim(**kw)
+    state = sim.reset()
+    acts = bench_actions(sim, B_MAIN)
+    seq = action_seq(acts, TEX_TICKS)
+    with fallback_every_tick():
+        got_state, got = sim.rollout(state, seq, TEX_TICKS)
+    s, want = state, []
+    for _ in range(TEX_TICKS):
+        s, idx, _ = sim.step_render(s, acts)
+        want.append(idx)
+    same = torch.equal(got, torch.stack(want)) and all(
+        torch.equal(a, b) for a, b in zip(got_state, s))
+    rates = []
+    for _ in range(TEX_WINDOWS):
+        t0 = time.perf_counter()
+        state, _ = sim.rollout(state, seq, TEX_TICKS)
+        torch.cuda.synchronize()
+        rates.append(B_MAIN * TEX_TICKS / (time.perf_counter() - t0))
+    median = float(np.median(rates))
+    print(f"[{tag}] {label}, rollout with the triangle path over all {B_MAIN} envs"
+          f" on every tick (no conditional node): frames and state bitwise equal to"
+          f" eager {same}; median {median:.1f} env*frames/s (min {min(rates):.1f}, max"
+          f" {max(rates):.1f}) against {graph_rate:.1f} with the conditional node:"
+          f" {B_MAIN / median * 1e3 - B_MAIN / graph_rate * 1e3:.4f} ms more per tick")
+    require(same, f"{tag}: the unconditional fallback differs from eager")
 
 
 def phase_main(results):
+    from tpu_doom_torch.render import portal as P
+
+    P.fallback_tally("cuda")  # before any capture, so that the graphs count too
     sim = make_sim()
     state = sim.reset()
     acts = bench_actions(sim, B_MAIN)
     state, _, _ = run_ticks(sim, state, acts, WARMUP_TICKS)
-    fsim, fstate, facts = fallback_sim()
     torch.cuda.synchronize()
     load = ", ".join(f"{x:.2f}" for x in os.getloadavg())
     print(f"[host] {os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} usable;"
           f" load average {load}")
-    segments = {"bench": timed_segment(
+    main_needed = ("player_move", "render_portal_fused")
+    segments, eager = {}, {}
+    segments["bench"], eager["bench"] = timed_segment(
         "main", f":test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs", sim, state, acts,
-        WINDOWS, TIMED_TICKS, ("player_move", "render_portal_fused"))}
+        WINDOWS, TIMED_TICKS, main_needed)
+    segments["rollout"], graph_rate = rollout_segment(
+        "rollout", f":test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs", sim, state, acts,
+        WINDOWS, TIMED_TICKS, main_needed, eager["bench"])
+    del sim, state
+    time_unconditional_fallback("fallback_form", f":test: {W_MAIN}x{H_MAIN}", graph_rate)
 
-    segments["fallback"] = fallback_segment("fallback", fsim, fstate, facts,
-                                            "peel_resolve")
-    del sim, state, fsim, fstate
+    # The half-pitched fallback batch, eager then replayed: the triangle
+    # path (B3; B9 under portal_jnp) inside the graph's conditional node.
+    for seg, backend, needed in (("fallback", "portal", "peel_resolve"),
+                                 ("oracle_fallback", "portal_jnp", "depth_peel")):
+        fsim, fstate, facts = fallback_sim(raster_backend=backend)
+        segments[seg], eager[seg] = fallback_segment(seg, fsim, fstate, facts, needed)
+        segments["rollout_" + seg], _ = rollout_segment(
+            "rollout_" + seg, f":test: raster_backend={backend} portal_pitch=triangle,"
+            f" {B_MAIN // 2} envs pitched 0.3", fsim, fstate, facts, 1, FALLBACK_TICKS,
+            (needed,), eager[seg])
+        del fsim, fstate
 
-    # The portal_jnp configuration (B7 then B8 every frame) and its
-    # fallback (the "jnp" triangle path, B9).
+    # The portal_jnp configuration (B7 then B8 every frame).
     sim = make_sim(raster_backend="portal_jnp")
     state = sim.reset()
     acts = bench_actions(sim, B_MAIN)
     state, _, _ = run_ticks(sim, state, acts, TEX_WARMUP)
     torch.cuda.synchronize()
-    segments["oracle"] = timed_segment(
+    oracle_needed = ("player_move", "classify_alpha", "shade_portal")
+    segments["oracle"], eager["oracle"] = timed_segment(
         "oracle", f":test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs raster_backend=portal_jnp",
-        sim, state, acts, TEX_WINDOWS, TEX_TICKS,
-        ("player_move", "classify_alpha", "shade_portal"))
+        sim, state, acts, TEX_WINDOWS, TEX_TICKS, oracle_needed)
+    segments["rollout_oracle"], _ = rollout_segment(
+        "rollout_oracle", f":test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs"
+        " raster_backend=portal_jnp", sim, state, acts, TEX_WINDOWS, TEX_TICKS,
+        oracle_needed, eager["oracle"])
     del sim, state
-    fsim, fstate, facts = fallback_sim(raster_backend="portal_jnp")
-    segments["oracle_fallback"] = fallback_segment(
-        "oracle_fallback", fsim, fstate, facts, "depth_peel")
-    del fsim, fstate
 
     # The same two fallbacks on a maze's triangles (:texstress:).
     for seg, backend, needed in (("texstress_fallback", "portal", "peel_resolve"),
                                  ("texstress_oracle_fallback", "portal_jnp",
                                   "depth_peel")):
         fsim, fstate, facts = fallback_sim(wad_file=TEX_WAD, raster_backend=backend)
-        segments[seg] = fallback_segment(seg, fsim, fstate, facts, needed)
+        segments[seg], _ = fallback_segment(seg, fsim, fstate, facts, needed)
         del fsim, fstate
 
     for seg, extra, needed in (
@@ -1215,14 +1395,20 @@ def phase_main(results):
         acts = bench_actions(sim, B_MAIN)
         state, _, _ = run_ticks(sim, state, acts, TEX_WARMUP)
         torch.cuda.synchronize()
-        segments[seg] = timed_segment(
-            seg, f"{TEX_WAD} {W_MAIN}x{H_MAIN} x {B_MAIN} envs"
-            f" {extra or 'shipped defaults'}", sim, state, acts, TEX_WINDOWS,
-            TEX_TICKS, needed)
+        label = f"{TEX_WAD} {W_MAIN}x{H_MAIN} x {B_MAIN} envs {extra or 'shipped defaults'}"
+        segments[seg], eager[seg] = timed_segment(
+            seg, label, sim, state, acts, TEX_WINDOWS, TEX_TICKS, needed)
+        if extra:  # B6 and B5 inside the graph
+            segments["rollout_" + seg], graph_rate = rollout_segment(
+                "rollout_" + seg, label, sim, state, acts, TEX_WINDOWS, TEX_TICKS,
+                needed, eager[seg])
         del sim, state
+        if extra:
+            time_unconditional_fallback("fallback_form", label, graph_rate,
+                                        wad_file=TEX_WAD, **extra)
 
     for seg, c in segments.items():  # B2's global-table, B3's and B9's launches on :texstress:
-        maze = seg.startswith("texstress")
+        maze = "texstress" in seg
         c["render_portal_fused_texstress"] = (
             c["render_portal_fused"] - c["render_portal_fused_per_env"] if maze else 0)
         c["peel_resolve_maze"] = c["peel_resolve"] if maze else 0
@@ -1237,6 +1423,7 @@ def phase_main(results):
 
 
 def main():
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
     results = {name: dict(name=name, route="cuda", **meta)
@@ -1250,6 +1437,7 @@ def main():
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "ms_b2b", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "library_ms_b2b", *(f"{seg}_launches" for seg in segments))
+    print(f"[time] chip_smoke.py took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: results[n][k] for k in order}
                                   for n in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ the full-size checks.
 
 import importlib.util
 import os
+import subprocess
+import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -462,3 +465,162 @@ def test_onehot_lookup_shapes_on_card(cuda_device, n, offset):
             got = OH.lookup(idx, tab, iters, grid, variant)
             want = OH.lookup_ref(idx, tab, iters, grid, variant)
             assert torch.equal(got, want), (variant, iters, grid)
+
+
+def _walk_idx(rng, B, K, W, S):
+    """Seg ids in the walk's layout: K layers of W columns, W innermost,
+    each layer runs of one seg over neighbouring columns, -1 and S (no
+    seg) among them."""
+    idx = np.empty((B, K, W), np.int32)
+    for b in range(B):
+        for k in range(K):
+            cuts = np.sort(rng.choice(np.arange(1, W), rng.integers(3, 40), replace=False))
+            segs = rng.integers(-1, S + 1, len(cuts) + 1)
+            idx[b, k] = np.repeat(segs, np.diff(np.r_[0, cuts, W]))
+    return idx.reshape(B, K * W)
+
+
+SCATTER_CASES = ["walk", "same", "random", "ragged", "global"]
+
+
+def scatter_live_case(name):
+    """(idx (B, N) i32, live (B, N) f32, S) of a B6 case: the walk's
+    (256, 7680) into 448 with 0/1 live values; every idx equal (the worst
+    contention); random idx with negative and out-of-range values and
+    live values 0-3 (no warp holds only 0/1, so the kernel adds per lane);
+    N % 4 != 0 (rows off 16 bytes: the scalar head and tail); S above
+    the shared-memory limit (the global-atomics kernel)."""
+    rng = np.random.default_rng(SCATTER_CASES.index(name))
+    if name == "walk":
+        idx, S = _walk_idx(rng, 256, 24, 320, 448), 448
+    elif name == "same":
+        idx, S = np.full((256, 7680), 7, np.int32), 448
+    elif name == "random":
+        idx, S = rng.integers(-60, 500, (8, 1000)).astype(np.int32), 448
+    elif name == "ragged":
+        idx, S = rng.integers(-3, 450, (5, 7683)).astype(np.int32), 448
+    else:
+        idx, S = rng.integers(-5, 20005, (3, 3001)).astype(np.int32), 20000
+    live = (rng.random(idx.shape) < 0.6).astype(np.float32)
+    if name == "random":
+        live *= rng.integers(1, 4, idx.shape)
+    return idx, live, S
+
+
+@pytest.mark.parametrize("name", SCATTER_CASES)
+def test_scatter_live_ref_is_bincount(name):
+    """B6's plain version equals numpy's bincount on every card case."""
+    from tpu_doom_torch.ops import scatter_live_ref
+
+    idx, live, S = scatter_live_case(name)
+    got = scatter_live_ref(torch.as_tensor(idx), torch.as_tensor(live), S).numpy()
+    ok = (idx >= 0) & (idx < S)
+    want = np.stack([np.bincount(i[o], weights=v[o], minlength=S)
+                     for i, v, o in zip(idx, live, ok)]).astype(np.float32)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCATTER_CASES)
+def test_scatter_live_cases_on_card(cuda_device, name):
+    """On the card: B6 bitwise equal to `scatter_live_ref` on each case."""
+    from tpu_doom_torch.ops import scatter_live, scatter_live_ref
+
+    idx, live, S = (torch.as_tensor(x).to(cuda_device) if isinstance(x, np.ndarray) else x
+                    for x in scatter_live_case(name))
+    got, want = scatter_live(idx, live, S), scatter_live_ref(idx, live, S)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+ROLLOUT_CASES = {
+    "portal": (":test:", {}),
+    "fallback": (":test:", dict(portal_pitch="triangle")),
+    "portal_jnp_fallback": (":test:", dict(raster_backend="portal_jnp",
+                                           portal_pitch="triangle")),
+    "chunked": (":test:", dict(render_env_chunk=2)),
+    "texstress_active_set": (":texstress:10x16", dict(portal_global_segs_max=1024)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ROLLOUT_CASES))
+def test_rollout_replays_equal_eager_ticks_on_card(cuda_device, case):
+    """On the card: rollout (captured graphs, replayed) equals a loop of
+    eager step_render bitwise, frames and state, with render_every 1 and
+    2; half the envs pitched where the fallback is on. A second rollout
+    only replays: each replay adds its launches to the counts."""
+    from tpu_doom_torch.ops import launch_counts, reset_launch_counts
+    from tpu_doom_torch.sim.state import Actions
+
+    wad, extra = ROLLOUT_CASES[case]
+    sim = TorchSim(GameConfig(wad_file=wad, width=64, height=40, batch_size=4,
+                              raster_backend=extra.pop("raster_backend", "portal"),
+                              **extra), cuda_device)
+    s0 = sim.reset()
+    s0 = s0._replace(pitch=torch.tensor([0.3, 1e-8, -0.2, 1e-8], device=cuda_device))
+    g = torch.Generator().manual_seed(1)
+    n = 5
+    off = torch.zeros((n, 4), dtype=torch.bool)
+    seq = Actions(movement=torch.rand((n, 4, 2), generator=g) * 2 - 1,
+                  look=torch.rand((n, 4, 2), generator=g) * 0.1 - 0.05, jump=off,
+                  fly_toggle=off, clip_toggle=off,
+                  push=torch.rand((n, 4), generator=g) < 0.3, shoot=off)
+    seq = Actions(*(x.to(cuda_device) for x in seq))
+    for every in (1, 2):
+        state, frames = sim.rollout(s0, seq, n, render_every=every)
+        s, want = s0, []
+        for t in range(n):
+            s, idx, _ = sim.step_render(s, Actions(*(x[t] for x in seq)))
+            if (t + 1) % every == 0 and t < n - n % every:
+                want.append(idx)
+        assert torch.equal(frames, torch.stack(want)), every
+        assert all(torch.equal(a, b) for a, b in zip(state, s)), every
+    reset_launch_counts()
+    sim.rollout(s0, seq, n)
+    counts = launch_counts()
+    assert counts["player_move"] == n
+    if case == "texstress_active_set":
+        assert counts["scatter_live"] == n and counts["gather_cells"] == n
+    if case in ("fallback", "portal_jnp_fallback"):
+        peel = "depth_peel" if case == "portal_jnp_fallback" else "peel_resolve"
+        assert counts[peel] == n  # some env falls back on every tick
+
+
+@pytest.mark.cuda
+def test_rollout_capture_failure_raises(cuda_device):
+    """On the card: a tick that reads back to the host cannot be captured,
+    and rollout raises rather than running eagerly. In a process of its
+    own: a failed capture leaves the allocator unusable."""
+    code = (
+        "import tpu_doom_torch.models.doom_sim as D\n"
+        "from tpu_doom_torch.utils.config import GameConfig\n"
+        "step = D.sim_step\n"
+        "D.sim_step = lambda sc, cfg, s, a: (float(s.pos.sum()), step(sc, cfg, s, a))[1]\n"
+        "sim = D.DoomSim(GameConfig(wad_file=':test:', width=64, height=40, batch_size=2))\n"
+        "try:\n"
+        "    sim.rollout(sim.reset(), None, 2)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', str(e).splitlines()[0])\n"
+        "else:\n"
+        "    print('ran')\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert "raised" in out.stdout and "ran" not in out.stdout, out.stdout + out.stderr
+
+
+def test_every_entry_point_is_bound():
+    """Each `extern "C"` entry point of csrc/ has argument types in
+    `_build.SIGNATURES`, as many as its parameters: without them ctypes
+    passes every Python int as a C int and cuts pointers to 32 bits."""
+    import re
+
+    from tpu_doom_torch import _build
+
+    found = {}
+    for src in _build.CSRC.glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (tdt_\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            found[name] = len([p for p in params.split(",") if p.strip()])
+    assert found == {k: len(v) for k, v in _build.SIGNATURES.items()}

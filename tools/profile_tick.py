@@ -5,6 +5,7 @@
     python3 tools/profile_tick.py --wad :texstress: [--global-segs-max 1024]
     python3 tools/profile_tick.py --backend portal_jnp
     python3 tools/profile_tick.py --device cpu --batch 2 --width 64 --height 40
+    python3 tools/profile_tick.py --rollout      # also the captured tick, replayed
 
 Runs `DoomSim` of `tpu_doom_torch` on `--wad` (default `:test:`, 320x200
 x 256 envs, bench actions, clip_substeps=4; `--global-segs-max` lowers
@@ -17,9 +18,14 @@ prints:
   * a `torch.profiler` pass over --ticks ticks of step + render: device
     kernels launched and device-busy ms per tick, the idle share against
     the unprofiled step + render time, the device ms per tick of each
-    hand-written kernel and of the walk's sort, and the host ms per tick
+    hand-written kernel, of the walk's sort and of the captured tick's
+    fallback flag (`set_if_kernel`), and the host ms per tick
     spent blocked in the per-frame fallback flag read (`aten::item`);
-  * the profiler's table of the ops with the most device time.
+  * the profiler's table of the ops with the most device time;
+  * with --rollout, the same over --ticks ticks of `DoomSim.rollout` (the
+    tick captured as CUDA graphs and replayed; the capture made first):
+    kernels and device-busy ms per tick and the idle share, beside the
+    eager tick's, from this one process.
 Imports neither JAX nor the JAX package.
 """
 
@@ -34,17 +40,19 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import bench_actions, make_sim  # noqa: E402
+from chip_smoke import action_seq, bench_actions, make_sim  # noqa: E402
 from tpu_doom_torch.render import portal as P  # noqa: E402
 
 # Substrings of the profiler's kernel names. "render_portal_kernel" also
 # names B2's stage-budget instantiations (render_portal_kernel<mask>), but
 # only the production one, <0>, runs on the main path: the others are
-# launched by tpu_doom_torch/tools/kernelbudget.py alone.
+# launched by tpu_doom_torch/tools/kernelbudget.py alone. "set_if_kernel"
+# sets the captured tick's fallback flag (csrc/graph_if.cu).
 KERNEL_NAMES = ("player_move_kernel", "render_portal_kernel",
                 "peel_resolve_kernel", "select_rows_kernel",
                 "scatter_live", "gather_cells_kernel", "classify_alpha_kernel",
-                "shade_portal_kernel", "depth_peel_kernel", "radixSort")
+                "shade_portal_kernel", "depth_peel_kernel", "radixSort",
+                "set_if_kernel")
 
 
 def sync(device):
@@ -73,6 +81,8 @@ def main(argv=None):
     ap.add_argument("--height", type=int, default=200)
     ap.add_argument("--warmup", type=int, default=8)
     ap.add_argument("--ticks", type=int, default=8)
+    ap.add_argument("--rollout", action="store_true",
+                    help="also profile --ticks ticks of DoomSim.rollout (captured, replayed)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda":
@@ -110,25 +120,8 @@ def main(argv=None):
               f" {t_tick:.4f}, step {t_step:.4f}, render {t_render:.4f}, of"
               f" which walk {t_walk:.4f} (host clock, mean of {n})")
 
-        acts_ = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            acts_.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts_) as prof:
-            for _ in range(n):
-                tick()
-            sync(dev)
-
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
-    print(f"[profile] {len(kernels) / n:.1f} device kernels per tick,"
-          f" device busy {busy_ms:.4f} ms/tick, idle share"
-          f" {1.0 - busy_ms / t_tick:.4f} of the unprofiled {t_tick:.4f} ms")
-    for name in KERNEL_NAMES:
-        ev = [e for e in kernels if name in e.name]
-        ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n
-        print(f"[profile] {name}: {len(ev) / n:.2f} launches, {ms:.4f} device"
-              f" ms per tick")
+        prof = profile(tick, n, dev)
+    busy_ms = report("profile", prof, n, t_tick)
     avg = {e.key: e for e in prof.key_averages()}
     item = avg.get("aten::item")
     blocked = item.cpu_time_total / 1e3 / n if item else 0.0
@@ -137,8 +130,51 @@ def main(argv=None):
     print(prof.key_averages().table(sort_by="self_device_time_total"
                                     if dev.type == "cuda" else
                                     "self_cpu_time_total", row_limit=20))
+    if args.rollout:
+        with torch.no_grad():
+            seq = action_seq(acts, n)
+            sim.rollout(box[0], seq, n)  # captures the graphs
+            sync(dev)
+            t_roll = ms_per_call(lambda: sim.rollout(box[0], seq, n), dev, 3) / n
+            prof = profile(lambda: sim.rollout(box[0], seq, n), 1, dev)
+        roll_busy = report("rollout", prof, n, t_roll)
+        print(f"[rollout] graph against eager, {n} ticks each: ms/tick {t_roll:.4f} vs"
+              f" {t_tick:.4f} ({t_tick / t_roll:.3f}x); device busy {roll_busy:.4f} vs"
+              f" {busy_ms:.4f} ms/tick; idle share {1.0 - roll_busy / t_roll:.4f} vs"
+              f" {1.0 - busy_ms / t_tick:.4f}")
     return 0
 
+
+def device_events(prof):
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile(fn, calls, dev):
+    """torch.profiler over `calls` calls of fn, ending in a synchronize."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        sync(dev)
+    return prof
+
+
+def report(tag, prof, n, t_tick):
+    """Print kernels and device-busy ms per tick over n ticks, and the idle
+    share against the unprofiled t_tick; returns the busy ms per tick."""
+    kernels = device_events(prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+    print(f"[{tag}] {len(kernels) / n:.1f} device kernels per tick,"
+          f" device busy {busy_ms:.4f} ms/tick, idle share"
+          f" {1.0 - busy_ms / t_tick:.4f} of the unprofiled {t_tick:.4f} ms")
+    for name in KERNEL_NAMES:
+        ev = [e for e in kernels if name in e.name]
+        ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n
+        print(f"[{tag}] {name}: {len(ev) / n:.2f} launches, {ms:.4f} device"
+              f" ms per tick")
+    return busy_ms
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -17,8 +17,6 @@
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -37,10 +35,22 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(-(2.0**31), _I32_MAX_F).to(torch.int32)
 
 
-@functools.lru_cache(maxsize=None)
+_SCALARS: dict = {}
+
+
 def _scalar(s: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A 0-d tensor holding `s`, made once per (value, dtype, device)."""
-    return torch.full((), s, dtype=dtype, device=device)
+    """A 0-d tensor holding `s`, made once per (value, dtype, device).
+    Never inside a CUDA graph capture, which would only record its fill:
+    the capture's warm-up tick makes every one the tick uses."""
+    key = (s, dtype, device)
+    t = _SCALARS.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"_numerics: the device constant {s!r} ({dtype}) was first asked for"
+                " inside a CUDA graph capture; run the captured work once eagerly first")
+        t = _SCALARS[key] = torch.full((), s, dtype=dtype, device=device)
+    return t
 
 
 def div(x: torch.Tensor, s: float) -> torch.Tensor:

@@ -1,13 +1,18 @@
 """DoomSim: the user-facing simulator on PyTorch.
 
-Port of `tpu_doom/models/doom_sim.py` (reset / null_actions / step /
-render / step_render / render_rgb) on a `device`, the card unless the
-caller asks for the CPU. The portal
-backend renders every level, big ones (more than 192 walk rows, such as
-`:stress:` and `:texstress:`) through the big-level walk and, when the
-level's texel table exceeds `portal_global_segs_max`, the active-set
-path. `rollout`, `step_n`, `LevelBank`, checkpoints and the CLI are not
-ported yet (ROADMAP A).
+Port of `tpu_doom/models/doom_sim.py` on a `device`, the card unless the
+caller asks for the CPU: level management (`num_levels`, `list_levels`,
+`load_level` with its level cache, `check`), `reset` / `null_actions` /
+`step` / `render` / `step_render` / `render_rgb`, the multi-tick
+`step_n` and `rollout`, and the exit handling (`reset_exited` on the
+device, `handle_exits` on the host). On the card `step_n` and `rollout`
+replay captured CUDA graphs of the tick (`tpu_doom_torch/graphs.py`): one
+launch per tick and no host read inside the n ticks; on the CPU they
+loop eagerly. The portal backend renders every level, big ones (more
+than 192 walk rows, such as `:stress:` and `:texstress:`) through the
+big-level walk and, when the level's texel table exceeds
+`portal_global_segs_max`, the active-set path. `LevelBank`, checkpoints
+and the CLI are not ported yet (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -23,9 +28,11 @@ from ..geom.builder import compile_level
 from ..render import frames_to_rgb, render_dispatch
 from ..render.raster import check_raster_backend
 from ..sim.scene import scene_from_arrays
+from ..graphs import TickGraphs
 from ..sim.state import Actions, SimState, initial_state, null_actions
 from ..sim.step import check_collision_config
 from ..sim.step import step as sim_step
+from ..sim.step import step_n as sim_step_n
 from ..utils.config import GameConfig
 from ..wad.archive import Archive
 from ..wad.meta import WadMetadata
@@ -74,17 +81,50 @@ class DoomSim:
         self.textures = TextureDirectory(self.wad, self.metadata)
         log.info("assets loaded in %.2fs", _time.time() - t0)
         self.level_index = -1
+        self._level_cache: dict = {}  # index -> (arrays, scene, num_objects)
+        self._graphs: Optional[TickGraphs] = None
+        self._graphs_config = None
         self.load_level(config.initial_level_index)
 
+    # -- level management ----------------------------------------------
+
+    @property
+    def num_levels(self) -> int:
+        return self.wad.num_levels
+
+    def list_levels(self) -> list[bytes]:
+        return [self.wad.level_name(i) for i in range(self.wad.num_levels)]
+
     def load_level(self, index: int):
-        """Compile + upload a level; call reset() for fresh states."""
-        index = index % max(self.wad.num_levels, 1)
+        """Compile + upload a level (cached per index); call reset() for
+        fresh states. Drops the captured ticks, as the JAX package drops
+        its jits."""
+        index = index % max(self.num_levels, 1)
         if index == self.level_index:
             return
-        self.arrays = compile_level(self.wad, self.textures, self.metadata, index)
-        self.scene, self.num_objects = scene_from_arrays(self.arrays, self.device)
+        if index not in self._level_cache:
+            t0 = _time.time()
+            arrays = compile_level(self.wad, self.textures, self.metadata, index)
+            scene, num_objects = scene_from_arrays(arrays, self.device)
+            self._level_cache[index] = (arrays, scene, num_objects)
+            log.info("level %r compiled+uploaded in %.2fs", arrays.name,
+                     _time.time() - t0)
+        self.arrays, self.scene, self.num_objects = self._level_cache[index]
         self.level_index = index
         self._portal_scene = None
+        self._graphs = None
+
+    def check(self) -> float:
+        """Load + compile every level, then the current one again; returns
+        elapsed seconds (the reference's `check` subcommand)."""
+        t0 = _time.time()
+        current = self.level_index
+        for i in range(self.num_levels):
+            self.load_level(i)
+        self.load_level(current)
+        return _time.time() - t0
+
+    # -- simulation ------------------------------------------------------
 
     def reset(self, batch: Optional[int] = None) -> SimState:
         return initial_state(self.scene, self.num_objects,
@@ -125,3 +165,64 @@ class DoomSim:
     def render_rgb(self, state: SimState, width=None, height=None) -> np.ndarray:
         idx, cov = self.render(state, width, height)
         return frames_to_rgb(self.scene.palette, idx, cov).cpu().numpy()
+
+    # -- multi-tick ------------------------------------------------------
+
+    def tick_graphs(self) -> TickGraphs:
+        """The captured ticks of this level and config (made anew when
+        either changes). Its tick functions hold the level and config, not
+        the sim, so that dropping the sim frees the graphs at once."""
+        if self._graphs is None or self._graphs_config != self.config:
+            cfg, scene, pscene = self.config, self.scene, self.portal_scene()
+            self._graphs = TickGraphs(
+                lambda s, a: sim_step(scene, cfg, s, a),
+                lambda s, w, h: render_dispatch(scene, pscene, cfg, s, w, h)[0])
+            self._graphs_config = cfg
+        return self._graphs
+
+    def step_n(self, state: SimState, action_seq, n: int) -> SimState:
+        """n ticks with an (n, B, ...) Actions sequence, or idle ticks for
+        None."""
+        return sim_step_n(self.scene, self.config, state, action_seq, n,
+                          graphs=self.tick_graphs())
+
+    def rollout(self, state: SimState, action_seq, n: int, *, width=None,
+                height=None, render_every: int = 1):
+        """n ticks rendering every `render_every`-th frame: the scripted
+        flythrough / RL trajectory mode. With render_every > 1 each chunk
+        of render_every ticks renders one frame after its last tick, and
+        the n % render_every trailing ticks step unrendered. Returns
+        (final_state, frames (F, B, H, W) u8). On the card every tick is
+        a replayed CUDA graph, and nothing inside the n ticks reads
+        back to the host.
+
+        action_seq: (n, B, ...) Actions, or None for idle ticks."""
+        if render_every < 1:
+            raise ValueError(f"render_every must be at least 1, not {render_every}")
+        return self.tick_graphs().run(
+            state, action_seq, n, render_every, width or self.config.width,
+            height or self.config.height)
+
+    # -- exits -----------------------------------------------------------
+
+    @torch.no_grad()
+    def reset_exited(self, state: SimState) -> SimState:
+        """Envs whose exit fired restart this level in place (ref
+        level.rs:194-199, player.rs:119-133); the others are untouched. On
+        the device, with no host read: the batched-RL form of
+        `handle_exits`."""
+        exited = state.exit_triggered > 0
+        init = initial_state(self.scene, self.num_objects, state.pos.shape[0])
+        return SimState(*(
+            torch.where(exited.view((-1,) + (1,) * (s.dim() - 1)), i, s)
+            for i, s in zip(init, state)))
+
+    def handle_exits(self, state: SimState) -> SimState:
+        """Host-side exit handling for interactive, single-env flows: if
+        any env's exit fired, the whole batch moves to the next level and
+        resets (ref level.rs:194-199). Reads the exit flags to the host."""
+        exits = state.exit_triggered.cpu().numpy()
+        if exits.any():
+            self.load_level(self.level_index + 1)
+            state = self.reset(exits.shape[0])
+        return state

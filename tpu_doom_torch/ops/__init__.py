@@ -42,21 +42,50 @@ KERNELS = {
 
 
 def reset_launch_counts() -> None:
+    from ..graphs import reset_conditional_runs
+
     for fn in KERNELS.values():
         fn.launches = 0
     render_portal_fused.per_env_launches = 0
+    reset_conditional_runs()
 
 
-def launch_counts() -> dict:
-    """Launches per kernel; B2's per-env-table launches also count on
-    their own, as `render_portal_fused_per_env`."""
+def host_launch_counts() -> dict:
+    """The wrappers' own counts: launches made eagerly, plus each replayed
+    CUDA graph's launches outside its conditional nodes (`graphs.py`).
+    B2's per-env-table launches also count on their own, as
+    `render_portal_fused_per_env`."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     counts["render_portal_fused_per_env"] = render_portal_fused.per_env_launches
     return counts
 
 
+def add_launches(delta: dict) -> None:
+    """Add {name: launches} (names as in `host_launch_counts`) to the
+    wrappers' counts: what a graph replay launched."""
+    for name, n in delta.items():
+        if name == "render_portal_fused_per_env":
+            render_portal_fused.per_env_launches += n
+        else:
+            KERNELS[name].launches += n
+
+
+def launch_counts() -> dict:
+    """Launches per kernel: `host_launch_counts` plus the launches of the
+    conditional nodes' bodies in the replayed graphs, counted on the
+    device where each body ran (read here, so this synchronises)."""
+    from ..graphs import conditional_launches
+
+    counts = host_launch_counts()
+    for name, n in conditional_launches().items():
+        counts[name] += n
+    return counts
+
+
 __all__ = [
     "KERNELS",
+    "add_launches",
+    "host_launch_counts",
     "launch_counts",
     "reset_launch_counts",
     "player_move",

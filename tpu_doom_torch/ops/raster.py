@@ -45,7 +45,8 @@ select_rows.cu: each index read once, the tile's rows staged in
 swizzled shared memory, each output plane written as 512-byte runs of
 16-byte streaming stores); B6 `scatter_live` replaces
 `scatter_live_pallas`, the per-seg count of live crossings (a
-shared-memory histogram, csrc/scatter_live.cu); B5 `gather_cells`
+shared-memory histogram fed one add per seg per warp, csrc/
+scatter_live.cu); B5 `gather_cells`
 replaces `gather_cells_pallas`, the copy of each env's visible texture
 cells into its active texel table (one block per cell and env, 16-byte
 copies, csrc/gather_cells.cu).
@@ -753,6 +754,9 @@ select_rows.launches = 0
 # ---------------------------------------------------------------------------
 
 
+SCATTER_SMEM_SEGS = 12288  # csrc/scatter_live.cu's shared-memory path: 48 KB of counts
+
+
 def scatter_live_ref(idx, live, S: int):
     """Plain version of B6: idx (B, N) i32, live (B, N) f32 -> (B, S) f32
     with cnt[b, s] = sum of live[b, n] over idx[b, n] == s; positions
@@ -777,7 +781,10 @@ def scatter_live(idx, live, S: int):
     if (idx.dtype, live.dtype) != (torch.int32, torch.float32):
         raise ValueError("scatter_live: bad dtypes")
     idx, live = idx.contiguous(), live.contiguous()
-    out = torch.zeros((B, S), dtype=torch.float32, device=idx.device)
+    # The shared-memory kernel writes every count; the global one adds
+    # into zeros.
+    alloc = torch.empty if S <= SCATTER_SMEM_SEGS and N > 0 else torch.zeros
+    out = alloc((B, S), dtype=torch.float32, device=idx.device)
     if B * N == 0:
         return out
     check(load().tdt_scatter_live(

@@ -20,11 +20,13 @@ def perspective(fovy_rad, aspect, near, far, device) -> torch.Tensor:
     """gluPerspective matrix (4, 4) f32 (row-major, z in [-1, 1])."""
     f = float(np.float32(1.0) / np.float32(tan_f32(fovy_rad / 2.0)))
     m = torch.zeros((4, 4), dtype=torch.float32, device=device)
-    m[0, 0] = float(np.float32(f) / np.float32(aspect))
-    m[1, 1] = f
-    m[2, 2] = (far + near) / (near - far)
-    m[2, 3] = 2.0 * far * near / (near - far)
-    m[3, 2] = -1.0
+    # fill_ takes the scalar as a kernel argument; `m[i, j] = x` would
+    # copy it from the host, which a captured tick cannot do.
+    m[0, 0].fill_(float(np.float32(f) / np.float32(aspect)))
+    m[1, 1].fill_(f)
+    m[2, 2].fill_((far + near) / (near - far))
+    m[2, 3].fill_(2.0 * far * near / (near - far))
+    m[3, 2].fill_(-1.0)
     return m
 
 
@@ -54,5 +56,5 @@ def camera_matrices(pos, yaw, pitch, *, camera_height, fovy_rad, aspect,
     mv = torch.zeros((B, 4, 4), dtype=torch.float32, device=pos.device)
     mv[:, :3, :3] = rt
     mv[:, :3, 3] = t
-    mv[:, 3, 3] = 1.0
+    mv[:, 3, 3].fill_(1.0)
     return mv, perspective(fovy_rad, aspect, near, far, pos.device)

@@ -612,10 +612,13 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
     safe_t = torch.where(valid, t, 1.0)
     cyw3, shear3 = cyw[:, None, None], row_shear[:, None, None]
 
-    def select(cols_idx, ix):
-        """Attribute columns at the crossings' seg ids -> (B, K, W, n)."""
+    def select(cols, ix):
+        """Attribute columns `cols` (a slice, or a list stacked from views:
+        an index list would be copied to the device on every call) at the
+        crossings' seg ids -> (B, K, W, n)."""
         Bk, Kk, Wk = ix.shape
-        sub = table[:, :, cols_idx]
+        sub = (table[:, :, cols] if isinstance(cols, slice)
+               else torch.stack([table[:, :, c] for c in cols], dim=2))
         flat = ix.reshape(Bk, Kk * Wk, 1).expand(-1, -1, sub.shape[2])
         return torch.gather(sub, 1, flat).reshape(Bk, Kk, Wk, sub.shape[2])
 
@@ -714,7 +717,7 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
             return cb
 
     if not use_sel:
-        vals = select(list(range(table.shape[2])), idx)  # (B, K_eff, W, C)
+        vals = select(slice(None), idx)  # (B, K_eff, W, C)
 
         def col(c):
             return vals[..., c]
@@ -922,20 +925,52 @@ def render_portal_zero_pitch(pscene, scene, cfg, state, width, height):
     return idx_f.to(torch.uint8), cov_f > 0.5, overflow
 
 
+_FALLBACK_TALLY: dict = {}  # device -> 0-d int64 count of fallback envs
+
+
+def fallback_tally(device) -> torch.Tensor:
+    """A 0-d int64 tensor on `device` to which every later portal frame
+    adds, on the device, its number of envs on the triangle fallback.
+    Made at the first call, which must come before the captures it is to
+    count; zero it and read it as any tensor."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _FALLBACK_TALLY:
+        _FALLBACK_TALLY[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+    return _FALLBACK_TALLY[dev]
+
+
 def render_frames_portal(pscene, scene, cfg, state, width, height):
     """(indices (B, H, W) u8, covered (B, H, W) bool) via the portal path,
     with the exact triangle fallback for overflowed envs (and pitched
     ones under portal_pitch="triangle"): B3's path, or the "jnp" path
     under `portal_jnp` (raster.render_frames picks by the config).
-    Deciding whether any env falls back reads one flag to the host per
-    frame."""
+
+    Eagerly the host reads whether any env falls back, one flag per frame,
+    and renders those envs alone. Inside a captured tick that decision
+    stays on the device (`graphs.device_if`, the JAX package's `lax.cond`):
+    where any env falls back, every env is rendered through the triangle
+    path and the fallen ones take its frame (`jnp.where`); each env
+    renders on its own, so both forms give the same frames."""
+    from ..graphs import decides_on_device, device_if
+
     idx, cov, overflow = render_portal_zero_pitch(
         pscene, scene, cfg, state, width, height)
     if cfg.portal_pitch == "triangle":
         fall = (torch.abs(state.pitch) > PITCH_EPS) | overflow
     else:
         fall = overflow
-    if bool(fall.any()):
+    tally = _FALLBACK_TALLY.get(fall.device)
+    if tally is not None:
+        tally.add_(fall.sum())
+    if decides_on_device(fall):
+        with device_if(fall.any()):
+            idx_t, cov_t = render_frames(scene, cfg, state, width, height)
+            f3 = fall[:, None, None]
+            idx.copy_(torch.where(f3, idx_t, idx))
+            cov.copy_(torch.where(f3, cov_t, cov))
+    elif bool(fall.any()):
         sel = torch.nonzero(fall).flatten()
         sub = type(state)(*(x[sel] for x in state))
         idx_t, cov_t = render_frames(scene, cfg, sub, width, height)

@@ -50,7 +50,7 @@ def rotate_vec(yaw, pitch, v):
 def look_direction(yaw, pitch):
     """Forward vector rot * (0, 0, -1) -> (B, 3)."""
     v = torch.zeros((yaw.shape[0], 3), dtype=torch.float32, device=yaw.device)
-    v[:, 2] = -1.0
+    v[:, 2].fill_(-1.0)
     return rotate_vec(yaw, pitch, v)
 
 

@@ -3,7 +3,8 @@
 Port of the broad-phase path of `tpu_doom/sim/step.py` (step.py:26-185).
 The six collision sweeps per env go through kernel B1
 (`ops.collision.player_move`), which launches the CUDA kernel for CUDA
-tensors and runs its plain version for CPU tensors.
+tensors and runs its plain version for CPU tensors. `step_n` is the
+multi-tick loop (`tpu_doom/sim/step.py:188-208`).
 """
 
 from __future__ import annotations
@@ -79,3 +80,16 @@ def step(scene, cfg, state: SimState, actions: Actions) -> SimState:
         trig_alive=trig_alive, exit_triggered=exit_triggered, time=time,
         tick=state.tick + 1,
     )
+
+
+def step_n(scene, cfg, state: SimState, action_seq, n: int, *, graphs=None) -> SimState:
+    """n ticks with an (n, B, ...) Actions sequence, or n idle ticks for
+    None: the JAX package's `step_n` (a `lax.scan` over `step`). CPU
+    tensors step eagerly in a loop; on the card the tick is captured once
+    as a CUDA graph and replayed n times (`graphs.TickGraphs`; pass one
+    as `graphs` to keep its capture for later calls)."""
+    from ..graphs import TickGraphs
+
+    if graphs is None:
+        graphs = TickGraphs(lambda s, a: step(scene, cfg, s, a))
+    return graphs.run(state, action_seq, n)[0]
