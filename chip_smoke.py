@@ -29,7 +29,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
      portal_global_segs_max=1024 (all bitwise; B6 and torch.scatter_add
      also as runs of 10 launches captured in a CUDA graph, the device time
      without the wrapper's host share); B1 on :texstress:'s rows (bitwise,
-     with their M).
+     with their M); the bank's shapes at 640x400: on config 5's MAP01
+     after 8 bank ticks (padded to 141 walk rows, 1,024 envs), B1 on the
+     rows of its next step and B2 in one launch (the plain version and
+     the bound in slices of 256 envs); on the bank verify leg's MAP01
+     under portal_jnp (64 envs, half pitched, its hole table padded to
+     the bank's 67 rows), B7 and B8, then B3 and B9 on one block of the
+     fallback (the 32 pitched envs one run of its WHILE node renders;
+     the plain versions on 8 of them); all bitwise (B3: equal).
   4. tools: the kernels of the port's two instruments, which no main-path
      segment runs (their launch counts there stay 0). B10
      (tools/onehotbench.py): ldg, smem and copy bitwise against the plain
@@ -48,7 +55,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
      (B7, B8) paths on the 8 verify poses at 320x200 against
      tests/golden/verify_ref.npz, and the 8 :texstress: states of
      tests/golden/verify_texstress_ref.npz at 320x200 in both texel
-     configs and under portal_jnp (all made by the JAX package).
+     configs and under portal_jnp (all made by the JAX package); above
+     320x200 (tests/golden/regen_torch_ref.py), through portal and
+     portal_jnp, each pose within 16 px: the verify poses at 640x400,
+     :doom2: at 800x600 (MAP01's sprites, MAP02's strobe), the bank verify
+     leg at 640x400 (E1M1 and MAP01 on padded tables), where portal and
+     portal_jnp also stay within 16 px of each other over the leg.
   6. main path: every segment runs with the launch counts set to 0 just
      before it and read just after; each eager segment (step_render) is
      followed, where named, by its `rollout_` twin through
@@ -83,7 +95,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
        defaults (the big-level walk with B4) and with
        portal_global_segs_max=1024 (the active-set path: B6, B5, B2 per
        env; also replayed, and its fallback_form timed); 4 warm-up ticks,
-       then 3 windows of 8 ticks.
+       then 3 windows of 8 ticks;
+     bank5, bank8: LevelBank ticks (step_with_exits, then every level's
+       render; bank_main's actions with a 5 % push) of BASELINE config 5
+       (E1M1, E1M2, MAP01, MAP02 x 1,024 envs at 640x400) and of bench.py's
+       L=8 bank (+ :stress:4, :stress:6, :texstress:4x16, :texstress:6x24,
+       x 512 envs): one eager warm-up tick, the tick captured as one CUDA
+       graph (graphs.CapturedTick, the (state, active) pair its state),
+       8 eager ticks in lockstep with 8 replays, bitwise equal in state,
+       active mask and frames, then 3 windows of 4 (bank8: 8) ticks, each
+       run eagerly and then replayed under set_sync_debug_mode("error")
+       from the same state, both ending bitwise equal; env*frames/s eager
+       and replayed per window and as medians, device ms per replay
+       between CUDA events, envs on the triangle fallback per tick of
+       each window, peak device memory;
+     bank_big: E1M1 and :texstress: at portal_global_segs_max=1024 (every
+       level on the big-level walk and the active set) x 64 envs at
+       320x200, each level's frames bitwise those of the level alone, 8
+       replays bitwise eager ticks;
+     bank_oracle, bank_fallback: E1M1 and MAP01 x 64 envs at 640x400,
+       half pitched under portal_pitch="triangle", 4 replays bitwise eager
+       ticks: under portal_jnp (B7, B8 on the padded hole table, B9 in the
+       fallback's WHILE node) and under portal (B2, B3 there);
+     legacy: :test: x 256 envs, 150 ticks of bench actions through B1's
+       path and collision_backend="legacy" with the broad phase on and
+       off: legacy within 1e-3 of B1's path, its two forms bitwise equal.
 The last two lines: the kernels' JSON summary (launches summed over the
 main-path segments, and per segment), then the device JSON.
 Imports neither JAX nor the JAX package: the GPU machine has neither.
@@ -101,6 +137,16 @@ import time
 import numpy as np
 import torch
 
+from tpu_doom_torch.tools.banks import (
+    BANK5,
+    BANK8,
+    BANK_H,
+    BANK_W,
+    bank_actions,
+    bank_tick,
+    make_bank,
+)
+
 B_MAIN, W_MAIN, H_MAIN = 256, 320, 200
 WARMUP_TICKS, TIMED_TICKS, WINDOWS, FALLBACK_TICKS = 8, 32, 5, 4
 TEX_WAD, TEX_CAP = ":texstress:", 1024  # portal_global_segs_max of the active set
@@ -109,6 +155,15 @@ EQUAL_TICKS = 8  # replayed ticks held bitwise to eager ones per rollout segment
 TIMING_CALLS = 20
 BACK_TO_BACK = 10  # kernel launches per pair of CUDA events
 PX_CEILING = 16  # per-frame mismatch ceiling of the verify legs (bench.py:90)
+BANK5_E, BANK8_E = 1024, 512  # envs per level: 4,096 in all
+BANK_WINDOWS, BANK_TICKS = 3, 4  # timed windows of replayed bank ticks
+BANK8_TICKS = 8  # the L=8 bank's windows: its fallback's load varies by tick
+BANK_BIG = ((":test:", 0), (TEX_WAD, 0))  # a member on the big-level walk
+BANK_BIG_E = 64
+BANK_ORACLE_E = 64  # envs per level of the bank verify leg's segments
+BANK_PLAIN_ENVS = 8  # envs the plain B3 and B9 run on at the bank's shape
+LEGACY_TICKS = 150
+TRAJECTORY_DRIFT_CEILING = 1e-3  # tests/test_torch_sim.py
 B3_REL_TOL = 1e-6
 MAZE_PLAIN_ENVS = 16  # envs the plain B3 and B9 run on at the maze shape
 
@@ -154,6 +209,28 @@ KERNELS = {
         source="tpu_doom_torch/csrc/peel_resolve.cu",
         replaces="tpu_doom/ops/raster_pallas.py:322"),
     "depth_peel_maze": dict(
+        source="tpu_doom_torch/csrc/depth_peel.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:169"),
+    # B2 at config 5's shape: the bank's MAP01 at 640x400, 1,024 envs.
+    "render_portal_fused_bank": dict(
+        source="tpu_doom_torch/csrc/render_portal.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:854"),
+    # The bank's shapes at 640x400: B1 on config 5's MAP01 (1,024 envs,
+    # the padded table); B7 and B8 on the oracle bank's MAP01 (the padded
+    # hole table); B3 and B9 on one block of its fallback (32 envs).
+    "player_move_bank": dict(
+        source="tpu_doom_torch/csrc/player_move.cu",
+        replaces="tpu_doom/ops/collision_pallas.py:358"),
+    "classify_alpha_bank": dict(
+        source="tpu_doom_torch/csrc/classify_alpha.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:479"),
+    "shade_portal_bank": dict(
+        source="tpu_doom_torch/csrc/shade_portal.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:1394"),
+    "peel_resolve_bank": dict(
+        source="tpu_doom_torch/csrc/peel_resolve.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:322"),
+    "depth_peel_bank": dict(
         source="tpu_doom_torch/csrc/depth_peel.cu",
         replaces="tpu_doom/ops/raster_pallas.py:169"),
     # The instruments' kernels (phase 4); no main-path segment launches them.
@@ -519,47 +596,55 @@ def verify_state(sim, ref):
     )
 
 
-def phase_kernels(results):
-    from tpu_doom_torch.ops import (
-        player_move,
-        player_move_ref,
-        render_portal_fused,
-        render_portal_fused_ref,
-    )
-    from tpu_doom_torch.render import portal as P
+def phase_player_move(results, suffix, label, scene, cfg, state):
+    """B1 on the rows the step gives it for `state` of `scene` (the broad
+    phase's triangles per env), bitwise against its plain version, timed
+    beside its bound: the sweeps these inputs need (`player_move_sweeps`)
+    times M triangles times SWEEP_TRI_OPS, or the bytes, the larger."""
+    from tpu_doom_torch.ops import player_move, player_move_ref
     from tpu_doom_torch.sim.collision import broadphase_rows
+
+    pcfg = cfg.player
+    rows = broadphase_rows(scene, state.object_offset, state.pos)
+    st8 = torch.cat([state.pos, state.vel, torch.zeros_like(state.pos[:, :2])], 1)
+    kw = dict(radius=pcfg.radius, height=pcfg.height, dt=cfg.timestep,
+              substeps=pcfg.clip_substeps, enable_noclip=pcfg.enable_noclip)
+    got = player_move(rows, st8, **kw)
+    want = player_move_ref(rows, st8, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    same = bitwise_equal(got, want)
+    ms, b2b = kernel_ms(lambda: player_move(rows, st8, **kw))
+    plain = time_ms(lambda: player_move_ref(rows, st8, **kw))
+    print(f"[kernel] B1 player_move {label} rows {tuple(rows.shape)}: bitwise equal"
+          f" {same}, max_abs_err {err} (ceiling 0); {ms:.4f} ms ({b2b:.4f} back to back)"
+          f" vs plain {plain:.4f} ms")
+    require(same, f"B1 disagrees with its plain version on {label}: {err}")
+    sweeps = player_move_sweeps(rows, st8, pcfg.radius, cfg.timestep,
+                                pcfg.clip_substeps, pcfg.enable_noclip)
+    most = rows.shape[0] * (pcfg.clip_substeps + 1 + int(pcfg.enable_noclip))
+    b1_bytes = nbytes(rows, st8, got)
+    print(f"[bound] B1 player_move {label}: {sweeps} sweeps these inputs need (of"
+          f" {most} without the early exit) x M = {rows.shape[2]} triangles x"
+          f" {SWEEP_TRI_OPS} operations = {sweeps * rows.shape[2] * SWEEP_TRI_OPS}"
+          f" operations, beside {b1_bytes} bytes")
+    record(results, "player_move" + suffix, err, ms, b2b, plain, b1_bytes,
+           sweeps * rows.shape[2] * SWEEP_TRI_OPS)
+
+
+def phase_kernels(results):
+    from tpu_doom_torch.ops import render_portal_fused, render_portal_fused_ref
+    from tpu_doom_torch.render import portal as P
 
     sim = make_sim()
     state = sim.reset()
     acts = bench_actions(sim, B_MAIN)
     for _ in range(WARMUP_TICKS):
         state = sim.step(state, acts)
-    pcfg = sim.config.player
 
     # B1 at 256 envs, clip_substeps=4.
-    rows = broadphase_rows(sim.scene, state.object_offset, state.pos)
-    st8 = torch.cat([state.pos, state.vel, torch.zeros_like(state.pos[:, :2])], 1)
-    kw = dict(radius=pcfg.radius, height=pcfg.height, dt=sim.config.timestep,
-              substeps=pcfg.clip_substeps, enable_noclip=pcfg.enable_noclip)
-    got = player_move(rows, st8, **kw)
-    want = player_move_ref(rows, st8, **kw)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    ms, b2b = kernel_ms(lambda: player_move(rows, st8, **kw))
-    plain = time_ms(lambda: player_move_ref(rows, st8, **kw))
-    print(f"[kernel] B1 player_move rows {tuple(rows.shape)}: max_abs_err {err}"
-          f" (ceiling 0); {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
-    require(err == 0.0, f"B1 disagrees with its plain version: {err}")
-    sweeps = player_move_sweeps(rows, st8, pcfg.radius, sim.config.timestep,
-                                pcfg.clip_substeps, pcfg.enable_noclip)
-    most = rows.shape[0] * (pcfg.clip_substeps + 1 + int(pcfg.enable_noclip))
-    b1_bytes = nbytes(rows, st8, got)
-    print(f"[bound] B1 player_move: {sweeps} sweeps these inputs need (of {most}"
-          f" without the early exit) x M = {rows.shape[2]} triangles x"
-          f" {SWEEP_TRI_OPS} operations = {sweeps * rows.shape[2] * SWEEP_TRI_OPS}"
-          f" operations, beside {b1_bytes} bytes")
-    record(results, "player_move", err, ms, b2b, plain, b1_bytes,
-           sweeps * rows.shape[2] * SWEEP_TRI_OPS)
+    phase_player_move(results, "", f"rows of :test:'s {B_MAIN} envs", sim.scene,
+                      sim.config, state)
 
     # B2 on the port's own walk output, 256 envs at 320x200.
     args, kw, _ = P.fused_inputs(sim.portal_scene(), sim.scene, sim.config,
@@ -584,7 +669,8 @@ def phase_kernels(results):
     # B3 and B9 on the 8 verify poses at 320x200, 3 layers.
     ref = verify_ref()
     vsim = make_sim(batch_size=8, portal_crossings=12, raster_backend="auto")
-    phase_peel(results, "", "the 8 verify poses", vsim, verify_state(vsim, ref))
+    phase_peel(results, "", "the 8 verify poses", vsim.scene, vsim.config,
+               verify_state(vsim, ref))
 
 
 def peel_pairs(rows, grid, ybounds=None, tile_p=None, chunk_t=None):
@@ -622,12 +708,14 @@ def peel_tile_tests(rows, grid, width):
                    for r in rows))
 
 
-def phase_peel(results, suffix, label, sim, state, plain_envs=None):
-    """B3 and B9 on the triangle path's inputs for `state` at 320x200, each
-    against its plain version (where plain_envs is given, on the first
-    plain_envs envs, the plain version timed once), timed beside its bound:
-    the bytes of its inputs and output, or PEEL_TEST_OPS per covering
-    (pixel, triangle) pair (`peel_pairs`), whichever takes longer."""
+def phase_peel(results, suffix, label, scene, cfg, state, plain_envs=None,
+               width=W_MAIN, height=H_MAIN):
+    """B3 and B9 on the triangle path's inputs for `state` of `scene` at
+    width x height, each against its plain version (where plain_envs is
+    given, on the first plain_envs envs, the plain version timed once),
+    timed beside its bound: the bytes of its inputs and output, or
+    PEEL_TEST_OPS per covering (pixel, triangle) pair (`peel_pairs`),
+    whichever takes longer."""
     from tpu_doom_torch.ops import (
         depth_peel,
         depth_peel_ref,
@@ -637,16 +725,15 @@ def phase_peel(results, suffix, label, sim, state, plain_envs=None):
     )
     from tpu_doom_torch.render import raster as R
 
-    cfg = sim.config
     K = cfg.depth_layers
-    trows, tattrs, grid, yb, _ = R.peel_inputs(sim.scene, cfg, W_MAIN, H_MAIN, state)
+    trows, tattrs, grid, yb, _ = R.peel_inputs(scene, cfg, width, height, state)
     pk = dict(tile_p=cfg.raster_tile_p, chunk_t=cfg.raster_chunk_t)
     n = plain_envs or trows.shape[0]
     plain_calls = dict(calls=1, warmup=0) if plain_envs else {}
     slice_ = f" (plain version on envs 0-{n - 1}, one timed call)" if plain_envs else ""
 
     def b3():
-        return peel_resolve(trows, tattrs, grid, yb, K, **pk, width=W_MAIN)
+        return peel_resolve(trows, tattrs, grid, yb, K, **pk, width=width)
 
     def b3_plain():
         return peel_resolve_ref(trows[:n], tattrs[:n], grid, yb[:n], K, **pk)
@@ -669,7 +756,7 @@ def phase_peel(results, suffix, label, sim, state, plain_envs=None):
           f" K={K}{slice_}: has/pass/transparent equal {cat_ok}, float max rel err"
           f" {rel} (ceiling {B3_REL_TOL}), max_abs_err {err}; {ms:.4f} ms"
           f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms; {pairs} covering"
-          f" (pixel, triangle) pairs, {peel_tile_tests(trows, grid, W_MAIN)} tests after"
+          f" (pixel, triangle) pairs, {peel_tile_tests(trows, grid, width)} tests after"
           " the cull")
     require(cat_ok and fin_ok and rel <= B3_REL_TOL,
             f"B3 disagrees with its plain version on {label}")
@@ -679,12 +766,12 @@ def phase_peel(results, suffix, label, sim, state, plain_envs=None):
     del got
 
     # B9 on the same states: the "jnp" path's unsorted 16-column rows.
-    prep = R.prepare(sim.scene, cfg, W_MAIN, H_MAIN, state)
+    prep = R.prepare(scene, cfg, width, height, state)
     rows16 = pack_triangle_rows(prep["e"], prep["det"], prep["vz"], prep["vs"])
     del prep
 
     def b9():
-        return depth_peel(rows16, grid, K, width=W_MAIN)
+        return depth_peel(rows16, grid, K, width=width)
 
     def b9_plain():
         return depth_peel_ref(rows16[:n], grid, K)
@@ -702,7 +789,7 @@ def phase_peel(results, suffix, label, sim, state, plain_envs=None):
           f" K={K}{slice_}: ids equal and z bitwise {same} (ceiling 0), max_abs_err"
           f" {err}; z vs B3's channel 0 max_abs_err {max_abs_err(z, b3z)}; {ms:.4f} ms"
           f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms; {pairs} covering"
-          f" (pixel, triangle) pairs, {peel_tile_tests(rows16, grid, W_MAIN)} tests after"
+          f" (pixel, triangle) pairs, {peel_tile_tests(rows16, grid, width)} tests after"
           " the cull")
     require(same, f"B9 disagrees with its plain version on {label}")
     record(results, "depth_peel" + suffix, err, ms, b2b, plain,
@@ -716,15 +803,18 @@ def phase_kernels_maze(results):
     sim, state, _ = fallback_sim(wad_file=TEX_WAD)
     pitched = type(state)(*(x[: B_MAIN // 2] for x in state))
     require(bool((pitched.pitch.abs() > 0.0).all()), "the maze envs are not pitched")
-    phase_peel(results, "_maze", f"{TEX_WAD} {B_MAIN // 2} pitched envs", sim, pitched,
-               plain_envs=MAZE_PLAIN_ENVS)
+    phase_peel(results, "_maze", f"{TEX_WAD} {B_MAIN // 2} pitched envs", sim.scene,
+               sim.config, pitched, plain_envs=MAZE_PLAIN_ENVS)
 
 
-def phase_kernels_oracle(results, state, b2_idx):
-    """B7 then B8 (the `portal_jnp` configuration) on the port's own
-    :test: walk at 256 envs x 320x200, from B2's state, each bitwise
-    against its plain version; the chain against B2's frame is printed for
-    the record (the same function at zero pitch)."""
+def phase_kernels_oracle(results, state, b2_idx=None, suffix="", label=":test:",
+                         scenes=None, width=W_MAIN, height=H_MAIN):
+    """B7 then B8 (the `portal_jnp` configuration) on the port's own walk
+    of `state`, each bitwise against its plain version: on :test: at 256
+    envs x 320x200 from B2's state, where the chain against B2's frame
+    `b2_idx` is printed for the record (the same function at zero pitch),
+    or on `scenes`, a (portal scene, scene, config) triple, at width x
+    height."""
     from tpu_doom_torch.ops import (
         classify_alpha,
         classify_alpha_ref,
@@ -733,9 +823,10 @@ def phase_kernels_oracle(results, state, b2_idx):
     )
     from tpu_doom_torch.render import portal as P
 
-    sim = make_sim(raster_backend="portal_jnp")
-    cargs, sargs, shear, _ = P.oracle_inputs(sim.portal_scene(), sim.scene,
-                                             sim.config, W_MAIN, H_MAIN, state)
+    if scenes is None:
+        sim = make_sim(raster_backend="portal_jnp")
+        scenes = (sim.portal_scene(), sim.scene, sim.config)
+    cargs, sargs, shear, _ = P.oracle_inputs(*scenes, width, height, state)
     ch = classify_alpha(*cargs, shear=shear)
     want = classify_alpha_ref(*cargs, shear=shear)
     torch.cuda.synchronize()
@@ -744,11 +835,11 @@ def phase_kernels_oracle(results, state, b2_idx):
     del want
     ms, b2b = kernel_ms(lambda: classify_alpha(*cargs, shear=shear))
     plain = time_ms(lambda: classify_alpha_ref(*cargs, shear=shear))
-    print(f"[kernel] B7 classify_alpha records {tuple(cargs[0].shape)} ->"
+    print(f"[kernel] B7 classify_alpha {label} records {tuple(cargs[0].shape)} ->"
           f" {tuple(ch.shape)}: bitwise equal {same} (ceiling 0), max_abs_err"
           f" {err}; {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
-    require(same, "B7 disagrees with its plain version")
-    record(results, "classify_alpha", err, ms, b2b, plain,
+    require(same, f"B7 disagrees with its plain version on {label}")
+    record(results, "classify_alpha" + suffix, err, ms, b2b, plain,
            nbytes(*cargs[:3], shear, ch))
 
     B = ch.shape[0]
@@ -762,14 +853,15 @@ def phase_kernels_oracle(results, state, b2_idx):
     del wi, wc
     ms, b2b = kernel_ms(lambda: shade_portal(ch, *sargs, shear=shear))
     plain = time_ms(lambda: shade_portal_ref(ch, *sargs, shear=shear))
-    chain = int((gi.reshape(b2_idx.shape) != b2_idx).sum())
-    print(f"[kernel] B8 shade_portal ch {tuple(ch.shape)} table"
+    chain = ("" if b2_idx is None else "; the chain B7 -> B8 differs from B2 on"
+             f" {int((gi.reshape(b2_idx.shape) != b2_idx).sum())} px of this zero-pitch"
+             " state")
+    print(f"[kernel] B8 shade_portal {label} ch {tuple(ch.shape)} table"
           f" {tuple(sargs[4].shape)} hole {tuple(sargs[5].shape)}: {mism}"
           f" mismatched idx/cov px (ceiling 0), max_abs_err {err}; {ms:.4f} ms"
-          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms; the chain"
-          f" B7 -> B8 differs from B2 on {chain} px of this zero-pitch state")
-    require(mism == 0, f"B8 disagrees with its plain version on {mism} px")
-    record(results, "shade_portal", err, ms, b2b, plain,
+          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms{chain}")
+    require(mism == 0, f"B8 disagrees with its plain version on {label} on {mism} px")
+    record(results, "shade_portal" + suffix, err, ms, b2b, plain,
            shade_bytes(ch, sargs, shear), gi.numel() * SHADE_PIXEL_OPS)
 
 
@@ -1091,6 +1183,161 @@ def phase_goldens():
                 f":texstress: reference frames failed ({name})")
 
 
+def phase_goldens_hires():
+    """The port above 320x200 against the JAX package's portal_jnp frames
+    (tests/golden/regen_torch_ref.py), through "portal" (B2) and
+    "portal_jnp" (B7, B8), each pose within PX_CEILING: the 8 verify poses
+    at 640x400; :doom2: at 800x600 (MAP01's sprites, scrolling wall and
+    door pockets, MAP02's strobe room at two phases); the bank verify leg
+    at 640x400 (E1M1 and MAP01 on padded tables, 4 envs each), where the
+    port's portal and portal_jnp also stay within PX_CEILING of each other
+    over the whole leg (bench.py:187)."""
+    from tpu_doom_torch.utils.config import PlayerConfig
+
+    def held(label, idx, cov, ref_idx, ref_cov):
+        idx, cov = idx.cpu().numpy(), cov.cpu().numpy()
+        for i in range(idx.shape[0]):
+            n = int((idx[i] != ref_idx[i]).sum())
+            nc = int((cov[i] != ref_cov[i]).sum())
+            print(f"[golden] {label} {i}: {n} px, {nc} cov differ from JAX portal_jnp"
+                  f" (ceiling {PX_CEILING})")
+            require(n <= PX_CEILING and nc <= PX_CEILING, f"{label} {i} failed")
+
+    with np.load("tests/golden/verify_640x400_ref.npz") as z:
+        ref = {k: z[k] for k in z.files}
+    for backend in ("portal", "portal_jnp"):
+        vsim = make_sim(batch_size=8, portal_crossings=12, raster_backend=backend,
+                        width=BANK_W, height=BANK_H)
+        held(f"{backend} verify pose at {BANK_W}x{BANK_H}",
+             *vsim.render(verify_state(vsim, ref)), ref["idx"], ref["cov"])
+        del vsim
+
+    with np.load("tests/golden/verify_doom2_ref.npz") as z:
+        ref = {k: z[k] for k in z.files}
+    for level, key in ((0, "map01"), (1, "map02")):
+        n = ref[f"{key}_idx"].shape[0]
+        for backend in ("portal", "portal_jnp"):
+            sim = make_sim(wad_file=":doom2:", initial_level_index=level, batch_size=n,
+                           width=800, height=600, raster_backend=backend)
+            s = sim.reset(n)._replace(**{k: torch.as_tensor(ref[f"{key}_{k}"], device="cuda")
+                                         for k in ("pos", "yaw", "pitch", "time")})
+            held(f"{backend} :doom2: {key.upper()} pose at 800x600", *sim.render(s),
+                 ref[f"{key}_idx"], ref[f"{key}_cov"])
+            del sim
+
+    with np.load("tests/golden/verify_bank_ref.npz") as z:
+        ref = {k: z[k] for k in z.files}
+    frames = {}
+    for backend in ("portal", "portal_jnp"):
+        bank = make_bank(BANK5[0:1] + BANK5[2:3], raster_backend=backend,
+                         player=PlayerConfig(clip_substeps=1))
+        s = bank.reset(4)
+        require(np.array_equal(s.pos.cpu().numpy(), ref["pos"]),
+                "the bank's reset differs from the JAX bank's")
+        idx, cov = bank.render(s._replace(yaw=torch.as_tensor(ref["yaw"], device="cuda")))
+        held(f"{backend} bank verify leg (level, env) at {BANK_W}x{BANK_H}",
+             idx.flatten(0, 1), cov.flatten(0, 1), ref["idx"].reshape(8, BANK_H, BANK_W),
+             ref["cov"].reshape(8, BANK_H, BANK_W))
+        frames[backend] = (idx, cov)
+        del bank
+    leg = int((frames["portal"][0] != frames["portal_jnp"][0]).sum())
+    leg_cov = int((frames["portal"][1] != frames["portal_jnp"][1]).sum())
+    print(f"[golden] bank verify leg, port portal against port portal_jnp on the same padded"
+          f" tables: {leg} px, {leg_cov} cov over the leg (ceiling {PX_CEILING},"
+          " bench.py:187)")
+    require(leg <= PX_CEILING and leg_cov <= PX_CEILING, "the bank verify leg failed")
+
+
+def _env_slice(args, kw, i, j):
+    """B2's arguments for envs i..j-1 (the per-env ones sliced)."""
+    per_env = {0, 1, 2, 4, 5}
+    return (tuple(x[i:j] if n in per_env else x for n, x in enumerate(args)),
+            dict(shear=kw["shear"][i:j]))
+
+
+def phase_kernels_bank(results):
+    """The kernels of the bank's path at its shapes, each against its plain
+    version. On config 5 (4 x 1,024 envs, 640x400) after 8 bank ticks, at
+    MAP01 (padded to 141 walk rows): B1 on the rows of the level's next
+    step (the padded broad-phase table) and B2 on the env slice
+    render_env_chunk gives it (1,024 envs). The plain B2 and its bound's
+    byte count run on slices of 256 envs (the plain version's
+    intermediates of 1,024 envs would not fit), each env being rendered on
+    its own; the bound counts the table entries each slice reads, a few KB
+    more than the whole batch reads. Then `phase_kernels_bank_oracle`."""
+    from tpu_doom_torch.ops import render_portal_fused, render_portal_fused_ref
+    from tpu_doom_torch.render import portal as P
+
+    bank = make_bank(BANK5)
+    L, E = bank.num_levels, resolved_chunk(bank.cfg, BANK5_E, BANK_W, BANK_H)
+    state = bank.reset(E)
+    active = torch.ones((L, E), dtype=torch.bool, device="cuda")
+    acts = bank_actions(L, E)
+    tick = bank_tick(bank, BANK_W, BANK_H)
+    for _ in range(WARMUP_TICKS):
+        (state, active), _ = tick((state, active), acts)
+    lv = 2
+    phase_player_move(results, "_bank", f"config 5's MAP01 ({E} envs, padded table)",
+                      bank._at(bank.scenes, lv), bank.cfg, bank._at(state, lv))
+    args, kw, _ = P.fused_inputs(bank._at(bank.pscenes, lv), bank._at(bank.scenes, lv),
+                                 bank.cfg, BANK_W, BANK_H, bank._at(state, lv))
+    del bank, state
+    step = min(E, 256)
+    parts = [_env_slice(args, kw, i, i + step) for i in range(0, E, step)]
+
+    def plain():
+        out = [render_portal_fused_ref(*a, **k) for a, k in parts]
+        return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+    gi, gc = render_portal_fused(*args, **kw)
+    wi, wc = plain()
+    torch.cuda.synchronize()
+    mism = int((gi != wi).sum()) + int((gc != wc).sum())
+    err = max(max_abs_err(gi, wi), max_abs_err(gc, wc))
+    del wi, wc
+    ms, b2b = kernel_ms(lambda: render_portal_fused(*args, **kw))
+    plain_ms = time_ms(plain, calls=1, warmup=0)
+    n_bytes = sum(portal_bytes(a, k) for a, k in parts)
+    print(f"[kernel] B2 render_portal_fused at config 5's shape (MAP01 of the bank,"
+          f" {E} of {BANK5_E} envs per launch) records {tuple(args[0].shape)}: {mism}"
+          f" mismatched idx/cov px (ceiling 0), max_abs_err {err}; {ms:.4f} ms ({b2b:.4f}"
+          f" back to back) vs plain {plain_ms:.4f} ms (one call, in slices of {step})")
+    require(mism == 0, f"B2 disagrees with its plain version at the bank's shape on {mism} px")
+    record(results, "render_portal_fused_bank", err, ms, b2b, plain_ms, n_bytes,
+           gi.numel() * SHADE_PIXEL_OPS)
+    del args, parts, gi, gc
+    torch.cuda.empty_cache()
+    phase_kernels_bank_oracle(results)
+
+
+def phase_kernels_bank_oracle(results):
+    """B7 and B8 on the bank verify leg's members under portal_jnp at
+    640x400 (bank_oracle's bank: E1M1 and MAP01, BANK_ORACLE_E envs each,
+    half pitched), at MAP01, whose hole table is padded from 56 to the
+    bank's 67 rows; then B3 and B9 on the first fallback block of that
+    level, the FALLBACK_ENVS pitched envs one run of the fallback's WHILE
+    node renders through the triangle path, against their plain versions
+    on the first BANK_PLAIN_ENVS of them."""
+    from tpu_doom_torch.render.portal import FALLBACK_ENVS
+
+    bank, state = bank_oracle_bank("portal_jnp")
+    lv = 1
+    require(tuple(bank.pscenes["hole_bytes"].shape[1:]) == (67, 128),
+            f"the oracle bank's hole table is {tuple(bank.pscenes['hole_bytes'].shape)}")
+    scene, one = bank._at(bank.scenes, lv), bank._at(state, lv)
+    phase_kernels_oracle(results, one, suffix="_bank",
+                         label=f"the oracle bank's MAP01 ({BANK_ORACLE_E} envs, padded"
+                         " hole table)", scenes=(bank._at(bank.pscenes, lv), scene, bank.cfg),
+                         width=BANK_W, height=BANK_H)
+    block = type(one)(*(x[:FALLBACK_ENVS] for x in one))
+    require(bool((block.pitch.abs() > 0.0).all()), "the fallback block is not pitched")
+    phase_peel(results, "_bank", f"MAP01's first fallback block ({FALLBACK_ENVS} pitched"
+               f" envs) at {BANK_W}x{BANK_H}", scene, bank.cfg, block,
+               plain_envs=BANK_PLAIN_ENVS, width=BANK_W, height=BANK_H)
+    del bank, state
+    torch.cuda.empty_cache()
+
+
 def phase_golden_frames(golden, sim, label):
     """The four frames.npz scenarios at 160x100 through `sim`."""
     dev = sim.device
@@ -1282,16 +1529,22 @@ def rollout_segment(tag, label, sim, state, acts, windows, ticks, needed, eager)
 @contextlib.contextmanager
 def fallback_every_tick():
     """Captures made inside take the triangle path over every env on every
-    tick, merged by torch.where (`graphs.device_if` as a plain block): the
-    form of the fallback that needs no conditional node, timed beside it."""
+    tick, block by block, merged by torch.where (`graphs.device_while` in
+    its eager form): the form of the fallback that needs no conditional
+    node, timed beside it."""
     from tpu_doom_torch import graphs
 
-    orig = graphs.device_if
-    graphs.device_if = lambda pred: contextlib.nullcontext()
+    orig = graphs.device_while
+
+    def unconditional(cond, body, runs):
+        for _ in range(runs):
+            body()
+
+    graphs.device_while = unconditional
     try:
         yield
     finally:
-        graphs.device_if = orig
+        graphs.device_while = orig
 
 
 def time_unconditional_fallback(tag, label, graph_rate, **kw):
@@ -1324,6 +1577,295 @@ def time_unconditional_fallback(tag, label, graph_rate, **kw):
           f" {max(rates):.1f}) against {graph_rate:.1f} with the conditional node:"
           f" {B_MAIN / median * 1e3 - B_MAIN / graph_rate * 1e3:.4f} ms more per tick")
     require(same, f"{tag}: the unconditional fallback differs from eager")
+
+
+def capture_bank_tick(bank, state, active, acts, width, height):
+    """The bank tick captured as one CUDA graph (graphs.CapturedTick: the
+    state and the active mask written back into its buffers `state_buf`,
+    the actions read from `actions_buf`, every level's triangle fallback
+    a WHILE node)."""
+    from tpu_doom_torch.graphs import CapturedTick
+    from tpu_doom_torch.sim.state import Actions, SimState
+
+    return CapturedTick(bank_tick(bank, width, height),
+                        (SimState(*(x.clone() for x in state)), active.clone()),
+                        Actions(*(x.clone() for x in acts)))
+
+
+def lockstep(graph, tick, state, active, acts, ticks):
+    """`ticks` eager bank ticks in lockstep with as many replays of the
+    captured `graph` -> (whether state, active mask and frames stayed
+    bitwise equal, the eager state and active mask)."""
+    sbuf, abuf = graph.state_buf
+    same = True
+    for _ in range(ticks):
+        with torch.no_grad():
+            (state, active), frames = tick((state, active), acts)
+        graph.replay()
+        same = (same and torch.equal(graph.outs[0], frames) and torch.equal(abuf, active)
+                and all(torch.equal(a, b) for a, b in zip(sbuf, state)))
+    return same, state, active
+
+
+def bank_segment(tag, label, specs, E, width, height, windows, ticks, needed, **kw):
+    """A bank segment: the launch counts set to 0; one eager warm-up bank
+    tick; the tick captured as one graph; EQUAL_TICKS eager ticks in
+    lockstep with as many replays, bitwise equal in state, active mask
+    and frames; then `windows` windows over the same `ticks` ticks twice,
+    from the state the window starts at: eager ticks, then replays under
+    set_sync_debug_mode("error") (also timed with CUDA events, the device
+    interval per tick), the two runs' final states bitwise equal; the
+    counts read. Prints per window and as medians the env*frames/s eager
+    and replayed on the same ticks (host clock, ending in a synchronize),
+    the envs on the triangle fallback per tick, the peak device memory
+    before and after the capture. Returns (launch counts, replayed
+    env*frames/s)."""
+    from tpu_doom_torch.render import portal as P
+    from tpu_doom_torch.sim.state import SimState
+
+    bank = make_bank(specs, **kw)
+    L = bank.num_levels
+    state = bank.reset(E)
+    active = torch.ones((L, E), dtype=torch.bool, device="cuda")
+    acts = bank_actions(L, E)
+    tick = bank_tick(bank, width, height)
+    print(f"[{tag}] {label}: {L} levels x {E} envs at {width}x{height}, padded walk rows"
+          f" {bank.pscenes['has_back'].shape[1]}, texel table"
+          f" {tuple(bank.pscenes['tex_i8'].shape[1:])}, render_env_chunk"
+          f" {bank.cfg.render_env_chunk} -> {resolved_chunk(bank.cfg, E, width, height)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    P.fallback_tally("cuda").zero_()
+    with torch.no_grad():
+        (state, active), _ = tick((state, active), acts)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    graph = capture_bank_tick(bank, state, active, acts, width, height)
+    sbuf, abuf = graph.state_buf
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graph_peak = torch.cuda.max_memory_allocated()
+    same, state, active = lockstep(graph, tick, state, active, acts, EQUAL_TICKS)
+    print(f"[{tag}] {EQUAL_TICKS} replayed bank ticks against {EQUAL_TICKS} eager ones:"
+          f" state, active mask and frames bitwise equal {same}; capture {capture_s:.2f} s")
+    require(same, f"{tag}: the replayed bank ticks differ from eager ones")
+    check = torch.zeros((), dtype=torch.int64, device="cuda")
+    rates, eager_rates, dev_ms = [], [], []
+    for w in range(windows):
+        s_e, a_e = SimState(*(x.clone() for x in sbuf)), abuf.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(ticks):
+                (s_e, a_e), _ = tick((s_e, a_e), acts)
+        torch.cuda.synchronize()
+        eager_rates.append(L * E * ticks / (time.perf_counter() - t0))
+        before = int(P.fallback_tally("cuda"))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            for _ in range(ticks):
+                graph.replay()
+                check += graph.outs[0].sum(dtype=torch.int64)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append(L * E * ticks / dt)
+        dev_ms.append(start.elapsed_time(end) / ticks)
+        fallen = (int(P.fallback_tally("cuda")) - before) / ticks
+        same = torch.equal(a_e, abuf) and all(torch.equal(a, b) for a, b in zip(s_e, sbuf))
+        print(f"[{tag}] window {w}: {ticks} ticks from the same state, eager"
+              f" {eager_rates[-1]:.1f} env*frames/s; replayed {dt * 1e3 / ticks:.4f} ms/tick"
+              f" wall, {dev_ms[-1]:.4f} ms/tick between CUDA events: {rates[-1]:.1f}"
+              f" env*frames/s; final states bitwise equal {same}; {fallen:.1f} envs on the"
+              " triangle fallback per tick")
+        require(same, f"{tag}: window {w}'s replays end unlike its eager ticks")
+    counts = read_counts()
+    eager_rate = float(np.median(eager_rates))
+    median = float(np.median(rates))
+    peak = torch.cuda.max_memory_allocated()
+    moved = int((~abuf).sum())
+    n_ticks = 2 + EQUAL_TICKS * 2 + windows * ticks * 2
+    print(f"[{tag}] {label}, {L} x {E} envs at {width}x{height}, {windows} windows of"
+          f" {ticks} ticks: eager median {eager_rate:.1f} env*frames/s (min"
+          f" {min(eager_rates):.1f}, max {max(eager_rates):.1f}); replayed median"
+          f" {median:.1f} env*frames/s (min {min(rates):.1f}, max {max(rates):.1f}),"
+          f" {median / eager_rate:.3f}x, device {float(np.median(dev_ms)):.4f} ms/tick"
+          f" between CUDA events; peak device memory {eager_peak / 2**30:.2f} GiB eager,"
+          f" {graph_peak / 2**30:.2f} GiB after the capture, {peak / 2**30:.2f} GiB in all;"
+          f" kernel launches per replayed tick {graph.launches}, the {len(graph.bodies)}"
+          f" fallback bodies' per run; inactive slots after the run {moved}; share of envs"
+          f" on the triangle fallback per env and tick"
+          f" {int(P.fallback_tally('cuda')) / (n_ticks * L * E):.4f}; checksum {int(check)};"
+          f" launches {counts}")
+    for name in needed:
+        require(counts[name] >= windows * ticks * L, f"{tag}: {name} did not run every tick")
+    require(int(check) > 0 and bool(torch.isfinite(sbuf.pos).all()),
+            f"{tag}: frames are all zero or the state is not finite")
+    require(moved == 0, f"{tag}: {moved} slots went inactive: every group was full, so"
+            " an exit must restart its env in place")
+    del graph, sbuf, abuf, bank, state, active
+    torch.cuda.empty_cache()
+    return counts, median
+
+
+def resolved_chunk(cfg, batch, width, height):
+    """The env slice render_dispatch uses for this batch (AUTO resolved)."""
+    from tpu_doom_torch.render import env_chunk
+
+    return env_chunk(cfg, batch, width, height)
+
+
+def bank_big_segment(tag):
+    """A bank with a member on the big-level walk (:test: E1M1 and
+    :texstress:, whose 600 walk rows put every level on it) at
+    portal_global_segs_max=1024, so that every level also takes the
+    active-set path (B4, B6, B5, B2 per env): BANK_BIG_E envs per level at
+    320x200, after 4 bank ticks. Each level's frames are held bitwise to
+    the same states rendered by a DoomSim of that level alone (the port's
+    `test_bank_portal_matches_standalone`), then EQUAL_TICKS replays of the
+    captured bank tick to eager ones. Returns the launch counts."""
+    from tpu_doom_torch.sim.state import SimState
+
+    bank = make_bank(BANK_BIG, width=W_MAIN, height=H_MAIN,
+                     portal_global_segs_max=TEX_CAP)
+    L, E = bank.num_levels, BANK_BIG_E
+    state = bank.reset(E)
+    active = torch.ones((L, E), dtype=torch.bool, device="cuda")
+    acts = bank_actions(L, E)
+    tick = bank_tick(bank, W_MAIN, H_MAIN)
+    reset_counts()
+    with torch.no_grad():
+        for _ in range(4):
+            (state, active), _ = tick((state, active), acts)
+        idx, cov = bank.render(state)
+    diff = []
+    for lv, (wad, level) in enumerate(BANK_BIG):
+        sim = make_sim(wad_file=wad, initial_level_index=level, batch_size=E,
+                       portal_global_segs_max=TEX_CAP)
+        i1, c1 = sim.render(SimState(*(x[lv] for x in state)))
+        diff.append(int((i1 != idx[lv]).sum()) + int((c1 != cov[lv]).sum()))
+        del sim
+    graph = capture_bank_tick(bank, state, active, acts, W_MAIN, H_MAIN)
+    same = lockstep(graph, tick, state, active, acts, EQUAL_TICKS)[0]
+    counts = read_counts()
+    print(f"[{tag}] a bank of {[w for w, _ in BANK_BIG]} at {W_MAIN}x{H_MAIN} x {E} envs,"
+          f" portal_global_segs_max={TEX_CAP}, padded walk rows"
+          f" {bank.pscenes['has_back'].shape[1]}: each level's frames against that level"
+          f" rendered alone: {diff} mismatched idx/cov px (ceiling 0); {EQUAL_TICKS} replays"
+          f" against eager ticks bitwise equal {same}; launches {counts}")
+    require(diff == [0] * L, f"{tag}: a level of the bank renders unlike itself alone")
+    require(same, f"{tag}: the replayed bank ticks differ from eager ones")
+    for name in ("player_move", "select_rows", "scatter_live", "gather_cells",
+                 "render_portal_fused_per_env"):
+        require(counts[name] > 0, f"{tag}: {name} did not run")
+    del graph, bank
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bank_oracle_bank(backend):
+    """The bank verify leg's members (:test: E1M1, :doom2: MAP01) under
+    `backend` with portal_pitch="triangle", BANK_ORACLE_E envs per level
+    at 640x400, the first half of each level pitched 0.3 so that the
+    fallback runs -> (bank, state)."""
+    bank = make_bank(BANK5[0:1] + BANK5[2:3], raster_backend=backend,
+                     portal_pitch="triangle")
+    state = bank.reset(BANK_ORACLE_E)
+    pitch = state.pitch.clone()
+    pitch[:, : BANK_ORACLE_E // 2] = 0.3
+    return bank, state._replace(pitch=pitch)
+
+
+def bank_oracle_segment(tag, backend):
+    """bank_oracle_bank(backend)'s ticks: under portal_jnp, the reference
+    configuration, B7 and B8 on the padded hole table and B9 in the
+    fallback's WHILE node; under portal, B2 and B3 there. FALLBACK_TICKS
+    replays of the captured bank tick bitwise against eager ticks.
+    Returns the launch counts."""
+    bank, state = bank_oracle_bank(backend)
+    L, E = bank.num_levels, BANK_ORACLE_E
+    active = torch.ones((L, E), dtype=torch.bool, device="cuda")
+    acts = bank_actions(L, E)
+    tick = bank_tick(bank, BANK_W, BANK_H)
+    reset_counts()
+    graph = capture_bank_tick(bank, state, active, acts, BANK_W, BANK_H)
+    same = lockstep(graph, tick, state, active, acts, FALLBACK_TICKS)[0]
+    counts = read_counts()
+    print(f"[{tag}] the bank verify leg's members under {backend}, {L} x {E} envs at"
+          f" {BANK_W}x{BANK_H}, half pitched under portal_pitch=triangle, hole table"
+          f" {tuple(bank.pscenes['hole_bytes'].shape)} for texel table"
+          f" {tuple(bank.pscenes['tex_i8'].shape)}: {FALLBACK_TICKS} replays against eager"
+          f" ticks bitwise equal {same}; launches {counts}")
+    require(same, f"{tag}: the replayed bank ticks differ from eager ones")
+    needed = (("classify_alpha", "shade_portal", "depth_peel") if backend == "portal_jnp"
+              else ("render_portal_fused", "peel_resolve"))
+    for name in needed:
+        require(counts[name] > 0, f"{tag}: {name} did not run")
+    del graph, bank
+    torch.cuda.empty_cache()
+    return counts
+
+
+def legacy_segment(tag):
+    """B1 against its second oracle on the card: :test: x 256 envs, bench
+    actions, LEGACY_TICKS ticks in lockstep through the shipped path (B1)
+    and through collision_backend="legacy" with the broad phase on and off
+    (plain PyTorch); the two legacy runs bitwise equal, the legacy run
+    within TRAJECTORY_DRIFT_CEILING of B1's. Returns the launch counts."""
+    from tpu_doom_torch.utils.config import PlayerConfig
+
+    sims = {name: make_sim(player=PlayerConfig(clip_substeps=4, **pk)) for name, pk in (
+        ("b1", {}), ("legacy", dict(collision_backend="legacy")),
+        ("brute", dict(collision_backend="legacy", collision_broadphase=False)))}
+    states = {k: s.reset() for k, s in sims.items()}
+    acts = bench_actions(sims["b1"], B_MAIN)
+    reset_counts()
+    drift = torch.zeros((), dtype=torch.float32, device="cuda")
+    same = torch.ones((), dtype=torch.bool, device="cuda")
+    t = {k: 0.0 for k in sims}
+    for _ in range(LEGACY_TICKS):
+        for k, sim in sims.items():
+            t0 = time.perf_counter()
+            states[k] = sim.step(states[k], acts)
+            torch.cuda.synchronize()
+            t[k] += time.perf_counter() - t0
+        drift = torch.maximum(drift, (states["legacy"].pos - states["b1"].pos).abs().max())
+        same &= all(torch.equal(a, b) for a, b in zip(states["legacy"], states["brute"]))
+    counts = read_counts()
+    print(f"[{tag}] :test: {B_MAIN} envs, {LEGACY_TICKS} ticks of bench actions: the legacy"
+          f" oracle (broad phase) against B1's path, max |pos| drift {float(drift):.3e}"
+          f" (ceiling {TRAJECTORY_DRIFT_CEILING}); legacy brute force and broad phase"
+          f" bitwise equal {bool(same)}; ms/tick " + ", ".join(
+              f"{k} {v * 1e3 / LEGACY_TICKS:.4f}" for k, v in t.items())
+          + f"; launches {counts}")
+    require(float(drift) <= TRAJECTORY_DRIFT_CEILING, f"{tag}: legacy drifts from B1's path")
+    require(bool(same), f"{tag}: the legacy brute force and broad phase differ")
+    require(counts["player_move"] == LEGACY_TICKS, f"{tag}: B1 did not run every tick")
+    return counts
+
+
+def phase_bank():
+    """The level-bank and legacy segments of the main path -> {segment:
+    launch counts}."""
+    segments = {}
+    segments["bank5"], _ = bank_segment(
+        "bank5", "BASELINE config 5 (E1M1, E1M2, MAP01, MAP02)", BANK5, BANK5_E, BANK_W,
+        BANK_H, BANK_WINDOWS, BANK_TICKS, ("player_move", "render_portal_fused"))
+    segments["bank8"], _ = bank_segment(
+        "bank8", "the L=8 bank (bench.py:277-283)", BANK8, BANK8_E, BANK_W, BANK_H,
+        BANK_WINDOWS, BANK8_TICKS, ("player_move", "render_portal_fused"))
+    segments["bank_big"] = bank_big_segment("bank_big")
+    segments["bank_oracle"] = bank_oracle_segment("bank_oracle", "portal_jnp")
+    segments["bank_fallback"] = bank_oracle_segment("bank_fallback", "portal")
+    segments["legacy"] = legacy_segment("legacy")
+    return segments
 
 
 def phase_main(results):
@@ -1407,10 +1949,18 @@ def phase_main(results):
             time_unconditional_fallback("fallback_form", label, graph_rate,
                                         wad_file=TEX_WAD, **extra)
 
+    segments.update(phase_bank())
     for seg, c in segments.items():  # B2's global-table, B3's and B9's launches on :texstress:
         maze = "texstress" in seg
         c["render_portal_fused_texstress"] = (
             c["render_portal_fused"] - c["render_portal_fused_per_env"] if maze else 0)
+        c["render_portal_fused_bank"] = (
+            c["render_portal_fused"] if seg in ("bank5", "bank8") else 0)
+        # The bank's rows: its 640x400 segments (bank_big runs 320x200).
+        at_bank = seg in ("bank5", "bank8", "bank_oracle", "bank_fallback")
+        for name in ("player_move", "classify_alpha", "shade_portal", "peel_resolve",
+                     "depth_peel"):
+            c[name + "_bank"] = c[name] if at_bank else 0
         c["peel_resolve_maze"] = c["peel_resolve"] if maze else 0
         c["depth_peel_maze"] = c["depth_peel"] if maze else 0
     totals = {k: sum(c[k] for c in segments.values()) for k in results}
@@ -1431,8 +1981,10 @@ def main():
     phase_kernels(results)
     phase_kernels_maze(results)
     phase_kernels_texstress(results)
+    phase_kernels_bank(results)
     phase_tools(results)
     phase_goldens()
+    phase_goldens_hires()
     segments = phase_main(results)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "ms_b2b", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,9 +1,9 @@
 """Regenerate the reference frames the PyTorch port is held to on a GPU.
 
 Run from the repo root (JAX on the CPU):
-    JAX_PLATFORMS=cpu python tests/golden/regen_torch_ref.py [test|texstress]
-(no argument writes both files). Each renders 8 states through the JAX
-package's `portal_jnp` path at 320x200:
+    JAX_PLATFORMS=cpu python tests/golden/regen_torch_ref.py [test|texstress|640x400|bank|doom2]
+(no argument writes every file). Each renders its states through the JAX
+package's `portal_jnp` path:
 * verify_ref.npz: the 8 feature-covering verify poses of bench.py on
   :test: (walls, flats, sky, door, lift, sprite, masked middle, scroll,
   pitch shear): the poses' state fields and the (8, 200, 320)
@@ -18,6 +18,19 @@ package's `portal_jnp` path at 320x200:
   the two JAX renders disagree on two of the 8 envs (74 and 95 px, in a
   floor strip on the CPU); the port is held to the staged frames, and
   the script prints the disagreement.
+* verify_640x400_ref.npz: the 8 verify poses at 640x400 (bench.py's
+  `640x400` verify leg), as verify_ref.npz;
+* verify_bank_ref.npz: bench.py's `bank` verify leg (bench.py:148-187)
+  at 640x400: a LevelBank of :test: E1M1 and :doom2: MAP01 (padded
+  tables), 4 envs per level at reset with yaws from numpy's
+  default_rng(3); the (2, 4) yaws and the (2, 4, 400, 640) frames;
+* verify_doom2_ref.npz: :doom2: at 800x600 (BASELINE config 3): 4 poses
+  of MAP01 (its three sprites, the scrolling south wall, the door
+  pockets, one pose pitched), and, because MAP01 has no light effect, 2
+  poses of MAP02 in its slow-strobe room at two phases of the strobe.
+  No level of the :doom2: fixture has a sky; the sky at high resolution
+  is in verify_640x400_ref.npz (E1M1).
+Run with `640x400`, `bank` or `doom2` for one of these (each ~1-2 min).
 `chip_smoke.py` reads them with numpy alone (no JAX on the GPU machine).
 """
 
@@ -50,6 +63,22 @@ WIDTH, HEIGHT, CROSSINGS = 320, 200, 12
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "verify_ref.npz")
 OUT_TEXSTRESS = os.path.join(HERE, "verify_texstress_ref.npz")
+OUT_640 = os.path.join(HERE, "verify_640x400_ref.npz")
+OUT_BANK = os.path.join(HERE, "verify_bank_ref.npz")
+OUT_DOOM2 = os.path.join(HERE, "verify_doom2_ref.npz")
+# :doom2: poses at 800x600, (pos, yaw, pitch, time) in game units:
+DOOM2_POSES = {
+    0: [  # MAP01
+        ([-0.64, 0.5, -0.32], 0.4, 0.0, 0.0),      # start: victim, barrel, candle
+        ([-1.5, 0.5, -6.0], -1.5708, 0.0, 1.7),    # the scrolling south wall
+        ([-8.0, 0.5, -4.0], 1.5708, 0.0, 0.5),     # the north door pockets
+        ([-4.0, 0.5, -9.0], 0.3, 0.2, 2.3),        # the east pockets, pitched
+    ],
+    1: [  # MAP02: the slow-strobe room (sector type 3) at two phases
+        ([-2.5, 0.98, -7.0], 0.0, 0.0, 0.3),
+        ([-2.5, 0.98, -7.0], 0.0, 0.0, 1.1),
+    ],
+}
 
 
 def verify_states(sim):
@@ -155,10 +184,87 @@ def write_texstress_ref():
           (cov_f != cov).sum(axis=(1, 2)).tolist())
 
 
+def write_640_ref():
+    """bench.py:201 (`640x400`): the verify poses at 640x400."""
+    from tpu_doom.models import DoomSim
+    from tpu_doom.utils.config import GameConfig, PlayerConfig
+
+    sim = DoomSim(GameConfig(
+        wad_file=":test:", width=640, height=400, batch_size=len(POSES),
+        raster_backend="portal_jnp", portal_crossings=CROSSINGS,
+        render_env_chunk=0, player=PlayerConfig(clip_substeps=1),
+    ))
+    state = verify_states(sim)
+    idx, cov = sim.render(state)
+    np.savez_compressed(
+        OUT_640, idx=np.asarray(idx), cov=np.asarray(cov),
+        pos=np.asarray(state.pos), yaw=np.asarray(state.yaw),
+        time=np.asarray(state.time), pitch=np.asarray(state.pitch),
+        object_offset=np.asarray(state.object_offset),
+    )
+    print("wrote", OUT_640)
+
+
+def write_bank_ref():
+    """bench.py:148-187 (`_verify_bank_leg`) at 640x400 through portal_jnp."""
+    from tpu_doom.geom.builder import compile_level
+    from tpu_doom.models import DoomSim
+    from tpu_doom.models.level_bank import LevelBank
+    from tpu_doom.utils.config import GameConfig, PlayerConfig
+
+    cfg = GameConfig(
+        wad_file=":test:", width=640, height=400, raster_backend="portal_jnp",
+        render_env_chunk=0, player=PlayerConfig(clip_substeps=1),
+    )
+    sim1 = DoomSim(cfg)
+    sim2 = DoomSim(dataclasses.replace(cfg, wad_file=":doom2:"))
+    levels = [compile_level(sim1.wad, sim1.textures, sim1.metadata, 0),
+              compile_level(sim2.wad, sim2.textures, sim2.metadata, 0)]
+    bank = LevelBank(levels, cfg)
+    E = 4
+    rng = np.random.default_rng(3)
+    state = bank.reset(E)._replace(
+        yaw=jnp.asarray(rng.uniform(0, 6.28, (2, E)).astype(np.float32)))
+    idx, cov = bank.render(state)
+    np.savez_compressed(OUT_BANK, idx=np.asarray(idx), cov=np.asarray(cov),
+                        yaw=np.asarray(state.yaw), pos=np.asarray(state.pos))
+    print("wrote", OUT_BANK)
+
+
+def write_doom2_ref():
+    """:doom2: at 800x600 (BASELINE config 3), DOOM2_POSES per level."""
+    from tpu_doom.models import DoomSim
+    from tpu_doom.utils.config import GameConfig, PlayerConfig
+
+    out = {}
+    for level, poses in DOOM2_POSES.items():
+        sim = DoomSim(GameConfig(
+            wad_file=":doom2:", width=800, height=600, batch_size=len(poses),
+            raster_backend="portal_jnp", render_env_chunk=0,
+            initial_level_index=level, player=PlayerConfig(clip_substeps=1),
+        ))
+        state = sim.reset(len(poses))._replace(
+            pos=jnp.asarray([p[0] for p in poses], jnp.float32),
+            yaw=jnp.asarray([p[1] for p in poses], jnp.float32),
+            pitch=jnp.asarray([p[2] or 1e-8 for p in poses], jnp.float32),
+            time=jnp.asarray([p[3] for p in poses], jnp.float32),
+        )
+        idx, cov = sim.render(state)
+        for k, v in (("idx", idx), ("cov", cov), ("pos", state.pos),
+                     ("yaw", state.yaw), ("pitch", state.pitch),
+                     ("time", state.time)):
+            out[f"map{level + 1:02d}_{k}"] = np.asarray(v)
+    np.savez_compressed(OUT_DOOM2, **out)
+    strobe = int((out["map02_idx"][0] != out["map02_idx"][1]).sum())
+    print("wrote", OUT_DOOM2, "; MAP02's two strobe phases differ in", strobe, "px")
+
+
 def main(argv):
-    which = argv[1:] or ["test", "texstress"]
-    for name in which:
-        {"test": write_test_ref, "texstress": write_texstress_ref}[name]()
+    writers = {"test": write_test_ref, "texstress": write_texstress_ref,
+               "640x400": write_640_ref, "bank": write_bank_ref,
+               "doom2": write_doom2_ref}
+    for name in argv[1:] or list(writers):
+        writers[name]()
 
 
 if __name__ == "__main__":

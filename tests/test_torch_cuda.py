@@ -587,6 +587,38 @@ def test_rollout_replays_equal_eager_ticks_on_card(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pitched", [1, 3], ids=["within_budget", "over_budget"])
+def test_rollout_fallback_budget_on_card(cuda_device, monkeypatch, pitched):
+    """On the card, with fallback blocks of two envs: rollout replays
+    equal eager ticks bitwise where one env falls (the WHILE node's body
+    runs once per tick) and where three do (twice), and the graph holds
+    one conditional body."""
+    from tpu_doom_torch.ops import launch_counts, reset_launch_counts
+    from tpu_doom_torch.render import portal as P
+
+    monkeypatch.setattr(P, "FALLBACK_ENVS", 2)
+    sim = TorchSim(GameConfig(wad_file=":test:", width=64, height=40, batch_size=4,
+                              raster_backend="portal", portal_pitch="triangle"),
+                   cuda_device)
+    s0 = sim.reset()
+    pitch = torch.full((4,), 1e-8, device=cuda_device)
+    pitch[:pitched] = 0.3
+    s0 = s0._replace(pitch=pitch)
+    state, frames = sim.rollout(s0, None, 3)
+    s, want = s0, []
+    for _ in range(3):
+        s, idx, _ = sim.step_render(s, sim.null_actions())
+        want.append(idx)
+    assert torch.equal(frames, torch.stack(want))
+    assert all(torch.equal(a, b) for a, b in zip(state, s))
+    tick = sim.tick_graphs().ticks[("render", 4, 64, 40)]
+    assert len(tick.bodies) == 1
+    reset_launch_counts()
+    sim.rollout(s0, None, 3)
+    assert launch_counts()["peel_resolve"] == 3 * (1 if pitched == 1 else 2)
+
+
+@pytest.mark.cuda
 def test_rollout_capture_failure_raises(cuda_device):
     """On the card: a tick that reads back to the host cannot be captured,
     and rollout raises rather than running eagerly. In a process of its
@@ -624,3 +656,99 @@ def test_every_entry_point_is_bound():
                                        src.read_text()):
             found[name] = len([p for p in params.split(",") if p.strip()])
     assert found == {k: len(v) for k, v in _build.SIGNATURES.items()}
+
+
+def _bank(specs, device, **kw):
+    """A LevelBank of (wad, level) specs at 64x40."""
+    from tpu_doom_torch.tools.banks import make_bank
+
+    return make_bank(specs, device, width=64, height=40, **kw)
+
+
+CONFIG5 = ((":test:", 0), (":test:", 1), (":doom2:", 0), (":doom2:", 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["portal", "portal_jnp"])
+def test_bank_replays_equal_eager_ticks_on_card(cuda_device, backend):
+    """On the card: config 5's four members, 4 envs each, the bank tick
+    (step_with_exits, then every level's render) captured as one CUDA
+    graph and replayed equals eager ticks bitwise in state, active mask
+    and frames; an env parked at E1M1's exit switch migrates to E1M2's
+    group on the device, and half the envs are pitched under
+    portal_pitch="triangle" so that every level's fallback WHILE node runs."""
+    from tpu_doom_torch.graphs import CapturedTick
+    from tpu_doom_torch.sim.state import Actions, SimState, null_actions
+
+    bank = _bank(CONFIG5, cuda_device, raster_backend=backend, portal_pitch="triangle")
+    L, E = bank.num_levels, 4
+    s = bank.reset(E)
+    pos, pitch = s.pos.clone(), s.pitch.clone()
+    pos[0, 0] = torch.tensor([-2.56, 0.68, -14.7])
+    pitch[:, :2] = 0.3
+    s = s._replace(pos=pos, pitch=pitch)
+    active = torch.ones((L, E), dtype=torch.bool, device=cuda_device)
+    active[1, 2:] = False
+    push = torch.zeros((L, E), dtype=torch.bool, device=cuda_device)
+    push[0, 0] = True
+    acts = Actions(*(x.reshape((L, E) + x.shape[1:]) for x in null_actions(L * E, cuda_device)))
+    acts = acts._replace(push=push)
+
+    def tick(carry, a):
+        st, act = carry
+        st, act, _ = bank.step_with_exits(st, act, a)
+        return (st, act), bank.render(st)[0]
+
+    carry = (SimState(*(x.clone() for x in s)), active.clone())
+    graph = CapturedTick(tick, carry, Actions(*(x.clone() for x in acts)))
+    assert len(graph.bodies) == L
+    for t in range(3):
+        (s, active), frames = tick((s, active), acts)
+        graph.replay()
+        assert torch.equal(graph.outs[0], frames), t
+        assert torch.equal(carry[1], active), t
+        assert all(torch.equal(a, b) for a, b in zip(carry[0], s)), t
+    assert not bool(active[0, 0]) and int(active[1].sum()) == 3  # the env moved
+
+
+@pytest.mark.cuda
+def test_bank_padded_hole_table_on_card(cuda_device):
+    """On the card: a bank of E1M1 (holes, 534 texel rows) and
+    :texstress:6x24 (holeless, 1,353 rows) under portal_jnp: B8 takes the
+    padded hole table (ceil(1,353 / 8) rows) and each level renders as
+    it does alone."""
+    bank = _bank(((":test:", 0), (":texstress:6x24", 0)), cuda_device,
+                 raster_backend="portal_jnp")
+    assert tuple(bank.pscenes["hole_bytes"].shape) == (2, 170, 128)
+    s = bank.reset(2)
+    s = s._replace(yaw=torch.tensor([[0.0, 2.0], [1.0, 4.0]], device=cuda_device))
+    idx, cov = bank.render(s)
+    for lv, wad in enumerate((":test:", ":texstress:6x24")):
+        sim = TorchSim(GameConfig(wad_file=wad, width=64, height=40, batch_size=2,
+                                  raster_backend="portal_jnp"), cuda_device)
+        i1, c1 = sim.render(type(s)(*(x[lv] for x in s)))
+        assert torch.equal(i1, idx[lv]) and torch.equal(c1, cov[lv]), wad
+
+
+@pytest.mark.cuda
+def test_legacy_step_on_card(cuda_device):
+    """On the card: the `legacy` oracle's 150-tick trajectory stays within
+    the drift ceiling (1e-3) of B1's path, and its brute force equals its
+    broad phase bitwise."""
+    from tpu_doom_torch.utils.config import PlayerConfig
+
+    sims = [TorchSim(GameConfig(wad_file=":test:", width=64, height=40, batch_size=8,
+                                player=PlayerConfig(**pk)), cuda_device)
+            for pk in ({}, dict(collision_backend="legacy"),
+                       dict(collision_backend="legacy", collision_broadphase=False))]
+    g = torch.Generator().manual_seed(2)
+    a = sims[0].null_actions()._replace(
+        movement=(torch.rand((8, 2), generator=g) * 2 - 1).to(cuda_device),
+        look=(torch.rand((8, 2), generator=g) * 0.1 - 0.05).to(cuda_device))
+    states = [sim.reset() for sim in sims]
+    drift = 0.0
+    for _ in range(150):
+        states = [sim.step(s, a) for sim, s in zip(sims, states)]
+        drift = max(drift, float((states[1].pos - states[0].pos).abs().max()))
+        assert all(torch.equal(x, y) for x, y in zip(states[1], states[2]))
+    assert drift <= 1e-3, drift

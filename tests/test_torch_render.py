@@ -409,3 +409,51 @@ def test_stress_level_renders_through_big_walk():
     for e in range(2):
         assert int((it[e].numpy() != ij[e]).sum()) <= 16, e
         assert int((ct[e].numpy() != cj[e]).sum()) <= 16, e
+
+
+def _hires_pose(target, backend):
+    """One pose of a golden above 320x200 through the port on the CPU ->
+    (idx, cov, ref idx, ref cov), (n, H, W) each."""
+    from tpu_doom_torch.utils.config import PlayerConfig
+
+    if target == "640x400":  # verify pose 2: the big room, its sky and a sprite
+        with np.load(os.path.join(GOLDEN, "verify_640x400_ref.npz")) as z:
+            ref = {k: z[k][2:3] for k in z.files}
+        sim = TorchSim(TorchConfig(wad_file=":test:", width=640, height=400, batch_size=1,
+                                   raster_backend=backend, portal_crossings=12), "cpu")
+        s = sim.reset(1)._replace(**{k: torch.as_tensor(ref[k]) for k in (
+            "pos", "yaw", "time", "pitch", "object_offset")})
+        return (*sim.render(s), ref["idx"], ref["cov"])
+    if target == "doom2":  # MAP01 pose 0: its three sprites at 800x600
+        with np.load(os.path.join(GOLDEN, "verify_doom2_ref.npz")) as z:
+            ref = {k: z[k][0:1] for k in z.files if k.startswith("map01")}
+        sim = TorchSim(TorchConfig(wad_file=":doom2:", width=800, height=600, batch_size=1,
+                                   raster_backend=backend), "cpu")
+        s = sim.reset(1)._replace(**{k: torch.as_tensor(ref[f"map01_{k}"]) for k in (
+            "pos", "yaw", "pitch", "time")})
+        return (*sim.render(s), ref["map01_idx"], ref["map01_cov"])
+    # The bank verify leg: env 0 of E1M1 and of MAP01 on the padded tables.
+    from tpu_doom_torch.tools.banks import BANK5, make_bank
+
+    with np.load(os.path.join(GOLDEN, "verify_bank_ref.npz")) as z:
+        ref = {k: z[k][:, 0:1] for k in z.files}
+    bank = make_bank(BANK5[0:1] + BANK5[2:3], "cpu", raster_backend=backend,
+                        player=PlayerConfig(clip_substeps=1))
+    s = bank.reset(1)
+    np.testing.assert_array_equal(s.pos.numpy(), ref["pos"])
+    idx, cov = bank.render(s._replace(yaw=torch.as_tensor(ref["yaw"])))
+    return (idx.flatten(0, 1), cov.flatten(0, 1), ref["idx"].reshape(2, 400, 640),
+            ref["cov"].reshape(2, 400, 640))
+
+
+@pytest.mark.parametrize("backend", ["portal", "portal_jnp"])
+@pytest.mark.parametrize("target", ["640x400", "bank", "doom2"])
+def test_hires_golden_pose_within_ceiling(target, backend):
+    """The port's plain path against the JAX-made goldens above 320x200
+    that chip_smoke.py holds the card to (tests/golden/regen_torch_ref.py),
+    one pose per target (per level for the bank): <= 16 px per pose."""
+    idx, cov, ref_idx, ref_cov = _hires_pose(target, backend)
+    assert idx.shape == ref_idx.shape
+    for i in range(idx.shape[0]):
+        assert int((idx[i].numpy() != ref_idx[i]).sum()) <= 16, i
+        assert int((cov[i].numpy() != ref_cov[i]).sum()) <= 16, i

@@ -175,6 +175,28 @@ def test_device_fallback_equals_host_branch(backend, falls):
         assert torch.equal(col[0][1], want[0][1])
 
 
+@pytest.mark.parametrize("backend", ["portal", "portal_jnp"])
+@pytest.mark.parametrize("pitched", [(0,), (0, 2)], ids=["within_budget", "over_budget"])
+@pytest.mark.parametrize("block", [1, 2], ids=["blocks_of_1", "ragged_blocks_of_2"])
+def test_device_fallback_budget_equals_host_branch(monkeypatch, backend, pitched, block):
+    """The fallback's device form, block by block, bitwise the host
+    branch where one env falls and where two do: with blocks of one env,
+    and with blocks of two over three envs, where the last block ends at
+    the last env and renders env 1 a second time."""
+    from tpu_doom_torch.render import portal as P
+
+    monkeypatch.setattr(P, "FALLBACK_ENVS", block)
+    sim = _torch_sim(raster_backend=backend, portal_pitch="triangle")
+    s = _fallback_state(sim, False)
+    pitch = s.pitch.clone()
+    pitch[list(pitched)] = 0.3
+    s = s._replace(pitch=pitch)
+    want = sim.render(s)
+    with device_decisions():
+        got = sim.render(s)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_reset_exited_matches_jax():
     cfg = dict(wad_file=":test:", width=W, height=H, batch_size=4)
     simj = JaxSim(GameConfig(raster_backend="portal_jnp", **cfg))

@@ -81,10 +81,11 @@ SIGNATURES = {
     "tdt_onehot_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # out (int*): the device's opt-in shared memory per block, bytes
     "tdt_smem_optin": [_P],
-    # stream (capturing), body stream, pred (bool*): an IF node's start
-    "tdt_if_begin": [_P, _P, _P],
-    # body stream: the IF node's end
-    "tdt_if_end": [_P],
+    # stream (capturing), body stream, pred (bool*), handle out (u64*):
+    # a WHILE node's start
+    "tdt_while_begin": [_P, _P, _P, _P],
+    # body stream, handle (u64*), pred (bool*, or null): the WHILE node's end
+    "tdt_while_end": [_P, _P, _P],
 }
 
 

@@ -8,28 +8,31 @@ captured once as a CUDA graph over static buffers and replayed per tick:
 pool. Between replays the host only copies the tick's actions into the
 action buffer and the rendered frame out of the graph, both on the
 device; the graph writes the new state back into the state buffer.
-On the CPU the same loop runs eagerly.
+On the CPU the same loop runs eagerly. A level bank's tick
+(`LevelBank.step_with_exits`, then every level's render) is captured the
+same way with `CapturedTick`, its state the (state, active mask) pair.
 
 What the eager tick decides on the host, a captured one decides on the
-device. `device_if` is the only such decision, the triangle fallback of
-`render/portal.py`: inside a capture its block becomes the body of a
-conditional (IF) node (csrc/graph_if.cu) that a replay runs only where
-its flag, computed by the graph, is true. Eagerly under
-`device_decisions()` the block runs unconditionally; that is how a
-capture's warm-up tick runs every op the graph will hold (the kernels are
-loaded, the cached device constants of `_numerics` made) and how the CPU
-tests check that the device form equals the host branch.
+device. `device_while` is the only such decision, the triangle fallback
+of `render/portal.py`: inside a capture its body becomes the body of a
+conditional (WHILE) node (csrc/graph_while.cu) that a replay runs as
+long as its flag, computed by the graph, is true. Eagerly the body runs a
+fixed number of times, unconditionally; under `device_decisions()` that
+is how a capture's warm-up tick runs every op the graph will hold (the
+kernels are loaded, the cached device constants of `_numerics` made) and
+how the CPU tests check that the device form equals the host branch.
 
 Launch counts: a kernel wrapper counts its launches where it launches. A
 capture launches nothing, so `CapturedTick` takes the capture's counts
 back and each replay adds them; a conditional body's launches count once
-for every replay that ran it, from a device counter the body increments
-(read by `ops.launch_counts`).
+for every run of it, from a device counter the body increments (read by
+`ops.launch_counts`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import weakref
 
 import torch
@@ -71,8 +74,8 @@ def _diff(after: dict, before: dict) -> dict:
 
 @contextlib.contextmanager
 def device_decisions():
-    """Run `device_if` blocks unconditionally, eagerly: the device form of
-    the host's decisions, on any device."""
+    """Take the device form of the host's decisions eagerly, on any
+    device (`device_while` bodies then run unconditionally)."""
     prev = _device_decisions[0]
     _device_decisions[0] = True
     try:
@@ -87,40 +90,46 @@ def decides_on_device(t: torch.Tensor) -> bool:
     return _device_decisions[0] or (t.is_cuda and torch.cuda.is_current_stream_capturing())
 
 
-@contextlib.contextmanager
-def device_if(pred: torch.Tensor):
-    """Run the block where the 0-d bool tensor `pred` is true, deciding
-    on the device. Inside a capture the block is the body of an IF node
-    that each replay runs only where `pred`, as the graph computed it, is
-    true; outside one the block runs unconditionally, so it must leave
-    the same result whatever `pred` holds."""
-    if not (pred.is_cuda and torch.cuda.is_current_stream_capturing()):
-        yield
+def device_while(cond, body, runs: int) -> None:
+    """Run `body()` while `cond()`, a 0-d bool tensor made before the first
+    run and after each, is true, deciding on the device. Inside a capture
+    `body` is the body of a WHILE node that each replay runs as often as
+    the graph's `cond()` asks; outside one `body()` runs `runs` times
+    unconditionally, so each run must leave the same result whatever
+    `cond()` holds, and `runs` runs must do all the work."""
+    if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        for _ in range(runs):
+            body()
         return
     from ._build import check, load
     from .ops import host_launch_counts
 
     if not _captures:
-        raise RuntimeError("device_if: a CUDA graph capture not made by graphs.CapturedTick")
+        raise RuntimeError("device_while: a CUDA graph capture not made by graphs.CapturedTick")
     cap = _captures[-1]
     if len(cap.bodies) == MAX_BODIES:
-        raise RuntimeError(f"device_if: more than {MAX_BODIES} conditional bodies in one capture")
-    runs = cap.counters[len(cap.bodies)]
-    flag = pred.to(torch.bool).contiguous()
-    main, body = torch.cuda.current_stream(pred.device), cap.body_stream
+        raise RuntimeError(f"device_while: more than {MAX_BODIES} conditional bodies in one"
+                           " capture")
+    counter = cap.counters[len(cap.bodies)]
+    flag = cond().to(torch.bool).contiguous()
+    main, stream = torch.cuda.current_stream(flag.device), cap.body_stream
+    handle = ctypes.c_uint64()
     before = host_launch_counts()
-    check(load().tdt_if_begin(main.cuda_stream, body.cuda_stream, flag.data_ptr()),
-          "device_if (conditional node)")
+    check(load().tdt_while_begin(main.cuda_stream, stream.cuda_stream, flag.data_ptr(),
+                                 ctypes.byref(handle)), "device_while (conditional node)")
+    again = None
     # The body's allocations, made on the body stream, come from a pool
     # that lives as long as the captured tick, as the graph's own do.
     try:
-        with torch.cuda.use_mem_pool(cap.body_pool, pred.device), torch.cuda.stream(body):
-            runs.add_(1)
-            yield
+        with torch.cuda.use_mem_pool(cap.body_pool, flag.device), torch.cuda.stream(stream):
+            counter.add_(1)
+            body()
+            again = cond().to(torch.bool).contiguous()
     finally:
-        err = load().tdt_if_end(body.cuda_stream)
-    check(err, "device_if (conditional node)")
-    cap.bodies.append(_Body(_diff(host_launch_counts(), before), runs))
+        err = load().tdt_while_end(stream.cuda_stream, ctypes.byref(handle),
+                                   None if again is None else again.data_ptr())
+    check(err, "device_while (conditional node)")
+    cap.bodies.append(_Body(_diff(host_launch_counts(), before), counter))
 
 
 def conditional_launches() -> dict:
@@ -139,26 +148,39 @@ def reset_conditional_runs() -> None:
         b.runs.zero_()
 
 
+def _leaves(tree) -> list:
+    """The tensors of a tensor, or of a (nested) tuple of tensors."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in _leaves(x)]
+
+
 class CapturedTick:
     """`tick(state, actions) -> (state, *outs)` captured as one CUDA graph
     that reads `state_buf` and `actions_buf` and writes the new state back
     into `state_buf`; `outs` are its other outputs, rewritten by every
-    replay. An eager warm-up call under `device_decisions()` comes first;
-    a capture that fails raises."""
+    replay. The state is a SimState or any tuple of tensors and SimStates,
+    such as a level bank's (state, active mask): every tensor of it is
+    written back. The tick keeps both buffers (`state_buf`,
+    `actions_buf`): the graph reads their memory at every replay. An eager
+    warm-up call under `device_decisions()` comes first; a capture that
+    fails raises."""
 
-    def __init__(self, tick, state_buf: SimState, actions_buf: Actions, pool):
+    def __init__(self, tick, state_buf, actions_buf: Actions, pool=None):
         from .ops import add_launches, host_launch_counts
+
+        self.state_buf, self.actions_buf = state_buf, actions_buf
 
         with device_decisions():
             tick(state_buf, actions_buf)
-        cap = _Capture(state_buf.pos.device)
+        cap = _Capture(_leaves(state_buf)[0].device)
         self.graph = torch.cuda.CUDAGraph()
         before = host_launch_counts()
         _captures.append(cap)
         try:
             with torch.cuda.graph(self.graph, pool=pool):
                 new, *outs = tick(state_buf, actions_buf)
-                torch._foreach_copy_(list(state_buf), list(new))
+                torch._foreach_copy_(_leaves(state_buf), _leaves(new))
         finally:
             _captures.pop()
             captured = _diff(host_launch_counts(), before)

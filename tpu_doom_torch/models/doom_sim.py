@@ -11,8 +11,9 @@ launch per tick and no host read inside the n ticks; on the CPU they
 loop eagerly. The portal backend renders every level, big ones (more
 than 192 walk rows, such as `:stress:` and `:texstress:`) through the
 big-level walk and, when the level's texel table exceeds
-`portal_global_segs_max`, the active-set path. `LevelBank`, checkpoints
-and the CLI are not ported yet (ROADMAP A).
+`portal_global_segs_max`, the active-set path. Mixed-level batches are
+`models.level_bank.LevelBank`'s. Checkpoints and the CLI are not ported
+yet (ROADMAP A).
 """
 
 from __future__ import annotations

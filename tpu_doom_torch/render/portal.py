@@ -925,6 +925,9 @@ def render_portal_zero_pitch(pscene, scene, cfg, state, width, height):
     return idx_f.to(torch.uint8), cov_f > 0.5, overflow
 
 
+# Envs one run of a captured tick's fallback renders through the
+# triangle path (render_frames_portal).
+FALLBACK_ENVS = 32
 _FALLBACK_TALLY: dict = {}  # device -> 0-d int64 count of fallback envs
 
 
@@ -949,11 +952,16 @@ def render_frames_portal(pscene, scene, cfg, state, width, height):
 
     Eagerly the host reads whether any env falls back, one flag per frame,
     and renders those envs alone. Inside a captured tick that decision
-    stays on the device (`graphs.device_if`, the JAX package's `lax.cond`):
-    where any env falls back, every env is rendered through the triangle
-    path and the fallen ones take its frame (`jnp.where`); each env
-    renders on its own, so both forms give the same frames."""
-    from ..graphs import decides_on_device, device_if
+    stays on the device (`graphs.device_while`; the JAX package's
+    `lax.cond`) and shapes cannot depend on the data: the envs in the
+    order fallen first (a stable argsort) are cut into blocks of
+    FALLBACK_ENVS (the last block ends at the last env), and a WHILE node
+    renders one block per run through the triangle path while fallen envs
+    remain; the fallen ones among its envs take its frame (`jnp.where`).
+    The work follows the number of fallen envs, the graph holds one node
+    for it, and the memory it keeps is one block's. Each env renders on
+    its own, so all forms give the same frames."""
+    from ..graphs import decides_on_device, device_while
 
     idx, cov, overflow = render_portal_zero_pitch(
         pscene, scene, cfg, state, width, height)
@@ -965,11 +973,23 @@ def render_frames_portal(pscene, scene, cfg, state, width, height):
     if tally is not None:
         tally.add_(fall.sum())
     if decides_on_device(fall):
-        with device_if(fall.any()):
-            idx_t, cov_t = render_frames(scene, cfg, state, width, height)
-            f3 = fall[:, None, None]
-            idx.copy_(torch.where(f3, idx_t, idx))
-            cov.copy_(torch.where(f3, cov_t, cov))
+        B = fall.shape[0]
+        n = min(FALLBACK_ENVS, B)
+        order = torch.argsort((~fall).to(torch.uint8), stable=True)
+        n_fall = fall.sum()
+        block = torch.zeros((), dtype=torch.int64, device=fall.device)
+        lanes = torch.arange(n, device=fall.device)
+
+        def render_block():
+            sel = order[torch.clamp(block * n, max=B - n) + lanes]
+            idx_t, cov_t = render_frames(
+                scene, cfg, type(state)(*(x[sel] for x in state)), width, height)
+            took = fall[sel][:, None, None]
+            idx.index_put_((sel,), torch.where(took, idx_t, idx[sel]))
+            cov.index_put_((sel,), torch.where(took, cov_t, cov[sel]))
+            block.add_(1)
+
+        device_while(lambda: block * n < n_fall, render_block, -(-B // n))
     elif bool(fall.any()):
         sel = torch.nonzero(fall).flatten()
         sub = type(state)(*(x[sel] for x in state))

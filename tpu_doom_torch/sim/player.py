@@ -1,11 +1,14 @@
-"""Player physics after the collision sweeps: look, movement force, PD
-ground spring, gravity, clip/noclip commit.
+"""Player physics: look, movement force, PD ground spring, gravity,
+clip/noclip commit.
 
-Port of `rotate_vec`, `look_direction` and `step_player_with_moves`
-from `tpu_doom/sim/player.py`, over a written-out env batch: vectors are
-(B, 3), scalars (B,). Three-term sums are written out in the order XLA
-reduces them, and host scalars are rounded to f32 as JAX's weak types
-are, so single ticks agree with the JAX step to an ulp or so.
+Port of `tpu_doom/sim/player.py` over a written-out env batch: vectors
+are (B, 3), scalars (B,). `step_player_with_moves` is the math after the
+collision sweeps, shared by both collision paths: kernel B1 computes the
+sweeps on the main path; `step_player` runs them through the `legacy`
+oracle (`sim/collision.py:sweep_sphere`), the clip substeps of
+`_clip_move` and the noclip probe. Three-term sums are written out in the
+order XLA reduces them, and host scalars are rounded to f32 as JAX's weak
+types are, so single ticks agree with the JAX step to an ulp or so.
 """
 
 from __future__ import annotations
@@ -16,8 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .._numerics import div, f32
-from .collision import Contact
+from .._numerics import div, f32, rdiv
+from .collision import Contact, sweep_sphere
 
 GRAVITY = 17.0  # ref player.rs:308
 JUMP_SPEED = 5.0  # ref player.rs:233
@@ -132,17 +135,7 @@ def step_player_with_moves(cfg, timestep, ground: Contact, clipped_pos,
     force = torch.stack([force[:, 0], fy, force[:, 2]], dim=1)
 
     if cfg.enable_noclip:
-        old_y = pos[:, 1]
-        npos = pos + vel * dt
-        ground_y = torch.where(
-            torch.isfinite(nc_time),
-            npos[:, 1] + NOCLIP_PROBE_H * (0.5 - nc_time), old_y,
-        )
-        snap = ~fly & (npos[:, 1] <= ground_y)
-        ny = torch.where(snap, ground_y, npos[:, 1])
-        nvy = torch.where(snap & (vel[:, 1] < 0.0), 0.0, vel[:, 1])
-        noclip_pos = torch.stack([npos[:, 0], ny, npos[:, 2]], dim=1)
-        noclip_vel = torch.stack([vel[:, 0], nvy, vel[:, 2]], dim=1)
+        noclip_pos, noclip_vel = _noclip_post(pos, vel, dt, fly, nc_time)
         new_pos = torch.where(noclip[:, None], noclip_pos, clipped_pos)
         new_vel = torch.where(noclip[:, None], noclip_vel, clipped_vel)
     else:
@@ -153,3 +146,88 @@ def step_player_with_moves(cfg, timestep, ground: Contact, clipped_pos,
         pos=new_pos, vel=new_vel, yaw=new_yaw, pitch=new_pitch,
         last_height_diff=height_diff,
     )
+
+
+def _noclip_post(pos, vel, dt, fly, nc_time):
+    """Free movement with a downward ground snap when not flying
+    (player.rs:168-190), from the noclip probe's contact time."""
+    old_y = pos[:, 1]
+    npos = pos + vel * dt
+    ground_y = torch.where(
+        torch.isfinite(nc_time),
+        npos[:, 1] + NOCLIP_PROBE_H * (0.5 - nc_time), old_y,
+    )
+    snap = ~fly & (npos[:, 1] <= ground_y)
+    ny = torch.where(snap, ground_y, npos[:, 1])
+    nvy = torch.where(snap & (vel[:, 1] < 0.0), 0.0, vel[:, 1])
+    return (torch.stack([npos[:, 0], ny, npos[:, 2]], dim=1),
+            torch.stack([vel[:, 0], nvy, vel[:, 2]], dim=1))
+
+
+# ---------------------------------------------------------------------------
+# The `legacy` collision path: the six sweeps through `sweep_sphere`.
+# ---------------------------------------------------------------------------
+
+
+def _sweep(tris, center, radius, displacement):
+    """tris: (v0, v1, v2, normal) or (v0, v1, v2, normal, mask)."""
+    v0, v1, v2, n = tris[:4]
+    mask = tris[4] if len(tris) > 4 else None
+    return sweep_sphere(center, radius, displacement, v0, v1, v2, n, mask)
+
+
+def _axis_y(like, y: float):
+    """(B, 3) vectors (0, y, 0)."""
+    out = torch.zeros_like(like)
+    out[:, 1].fill_(y)
+    return out
+
+
+def step_player(cfg, timestep, tris, pos, vel, yaw, pitch, fly, noclip,
+                last_height_diff, movement, look, jump):
+    """One tick of player physics with the sweeps run by the `legacy`
+    oracle against each env's triangles `tris` (ref player.rs:359-408:
+    force, then clip or noclip, then the position, then vel += force*dt)."""
+    dt = f32(timestep)
+    ground = _sweep(tris, pos, FEET_RADIUS, _axis_y(pos, -f32(cfg.height)))
+    clipped_pos, clipped_vel = _clip_move(cfg, tris, pos, vel, dt, cfg.clip_substeps)
+    if cfg.enable_noclip:
+        nc_time = _noclip_probe(cfg, tris, pos, vel, dt)
+    else:
+        nc_time = torch.full_like(pos[:, 0], float("inf"))
+    return step_player_with_moves(
+        cfg, timestep, ground, clipped_pos, clipped_vel, nc_time, pos, vel,
+        yaw, pitch, fly, noclip, last_height_diff, movement, look, jump)
+
+
+def _clip_move(cfg, tris, pos, vel, dt, n_substeps: int):
+    """The reference's sweep-project loop (player.rs:142-166) as a fixed
+    number of masked substeps: advance to the contact, drop the normal
+    component of the velocity, go on with the time left."""
+    time_left = torch.full_like(pos[:, 0], dt)
+    done = torch.zeros_like(pos[:, 0], dtype=torch.bool)
+    for _ in range(n_substeps):
+        displacement = vel * time_left[:, None]
+        contact = _sweep(tris, pos, cfg.radius, displacement)
+        dmag = torch.sqrt(_sum3(displacement, displacement))
+        adjusted = contact.time - rdiv(0.001, torch.where(dmag > 0.0, dmag, 1.0))
+        blocked = contact.hit & (adjusted < 1.0) & ~done
+        t = torch.clamp(contact.time, 0.0, 1.0)
+        pos = torch.where(
+            done[:, None], pos,
+            torch.where(blocked[:, None], pos + displacement * adjusted[:, None],
+                        pos + displacement))
+        vel = torch.where(
+            blocked[:, None],
+            vel - contact.normal * _sum3(contact.normal, vel)[:, None], vel)
+        time_left = torch.where(blocked, time_left * (1.0 - t), time_left)
+        done = done | ~blocked
+    return pos, vel
+
+
+def _noclip_probe(cfg, tris, pos, vel, dt):
+    """The noclip ground probe (player.rs:168-178): from the moved
+    position, a NOCLIP_PROBE_H-tall downward sweep with the clip radius ->
+    contact time (B,), inf for none."""
+    center = pos + vel * dt + _axis_y(pos, NOCLIP_PROBE_H / 2.0)
+    return _sweep(tris, center, cfg.radius, _axis_y(pos, -NOCLIP_PROBE_H)).time

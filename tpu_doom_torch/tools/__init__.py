@@ -7,7 +7,8 @@
 
 Both run on the card unless `--device cpu` is given (their kernels' plain
 versions, for checking the tools themselves). Neither runs on the main
-path: their launch counts stay 0 there.
+path: their launch counts stay 0 there. `banks` builds the level banks
+the card is measured on (chip_smoke.py, tools/profile_tick.py).
 """
 
 from __future__ import annotations

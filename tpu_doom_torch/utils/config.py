@@ -39,13 +39,14 @@ class PlayerConfig:
     # runs that never toggle noclip.
     enable_noclip: bool = True
     # Collision broad-phase: sweep only the player's XZ grid cell's
-    # triangle list instead of the whole level (geom/broadphase.py). The
-    # port has only this path: False raises (sim/step.py).
+    # triangle list instead of the whole level (geom/broadphase.py).
+    # False sweeps every triangle through the `legacy` oracle (sim/step.py).
     collision_broadphase: bool = True
-    # The port accepts only "auto": B1 for CUDA tensors, its plain
-    # PyTorch version for CPU tensors. The JAX package's other names pick
-    # a TPU kernel or its oracle; "legacy" raises until that oracle is
-    # ported (sim/step.py:check_collision_config).
+    # "auto": kernel B1 for CUDA tensors, its plain PyTorch version for
+    # CPU tensors. "legacy": the per-env sweep_sphere oracle
+    # (sim/collision.py), plain PyTorch on any device. The JAX package's
+    # other names pick a TPU kernel and raise here
+    # (sim/step.py:check_collision_config).
     collision_backend: str = "auto"
 
 
@@ -133,8 +134,8 @@ class GameConfig:
     # may be smaller), each through the same path, which bounds the
     # per-slice intermediates (the walk's records, B4's output, B5's
     # tables) for large batches. Frames are the same as in one piece.
-    # 0: one piece. -1 = AUTO, on the port also one piece: no size has
-    # been chosen for the card yet.
+    # 0: one piece. -1 = AUTO, on the port also one piece: the fastest
+    # at every size measured on an H100 (render/__init__.py:env_chunk).
     render_env_chunk: int = -1
     # No effect on the port. The JAX package unrolls this many env chunks
     # per step of its compiled chunk loop; the port loops over slices in
