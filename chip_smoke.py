@@ -36,7 +36,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
      under portal_jnp (64 envs, half pitched, its hole table padded to
      the bank's 67 rows), B7 and B8, then B3 and B9 on one block of the
      fallback (the 32 pitched envs one run of its WHILE node renders;
-     the plain versions on 8 of them); all bitwise (B3: equal).
+     the plain versions on 8 of them); all bitwise (B3: equal). The entry
+     points' shapes at 64x40 (`*_entry`): B1 and B2 on entry()'s 2 envs
+     after 4 walking ticks, B3 on the CLI's one env under its default
+     backend ("auto") after the 21 ticks of its dump-frames pilot.
   4. tools: the kernels of the port's two instruments, which no main-path
      segment runs (their launch counts there stay 0). B10
      (tools/onehotbench.py): ldg, smem and copy bitwise against the plain
@@ -120,6 +123,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
      legacy: :test: x 256 envs, 150 ticks of bench actions through B1's
        path and collision_backend="legacy" with the broad phase on and
        off: legacy within 1e-3 of B1's path, its two forms bitwise equal.
+  7. entry points, each a segment with the launch counts set to 0 before
+     it and read after (in a subprocess, its own counts of its timed
+     window, from its `launches` line), every JSON line printed:
+     entry_bench: `python3 -m tpu_doom_torch.bench` at its defaults (the
+       captured step + render + checksum tick, 256 envs at 320x200, 32
+       timed replays);
+     entry_bank: the same with BENCH_BANK=1 BENCH_TICKS=4 (config 5);
+     entry_verify: `--verify`, all seven legs, which must pass;
+     entry_cli: `python -m tpu_doom_torch.cli` in this process on the
+       card at 64x40: list-levels, check, bench and demo at its default
+       backend ("auto": B3), dump-frames under "portal" (B2) and "auto";
+       each dump-frames then runs again with --device cpu (the kernels'
+       plain versions), and the card's frames and manifest must equal the
+       CPU's, bitwise;
+     entry_fn: tpu_doom_torch.entry's fn captured as a CapturedTick with
+       seeded walking actions, 4 replays bitwise equal to 4 eager ticks;
+       the same 4 ticks from CPU copies of the state and actions, bitwise
+       equal to the card's in state and frames; then a checkpoint of the
+       card state saved and loaded back, bitwise.
+     A subprocess that fails, or prints no JSON line, fails the run.
 The last two lines: the kernels' JSON summary (launches summed over the
 main-path segments, and per segment), then the device JSON.
 Imports neither JAX nor the JAX package: the GPU machine has neither.
@@ -137,15 +160,8 @@ import time
 import numpy as np
 import torch
 
-from tpu_doom_torch.tools.banks import (
-    BANK5,
-    BANK8,
-    BANK_H,
-    BANK_W,
-    bank_actions,
-    bank_tick,
-    make_bank,
-)
+from tpu_doom_torch.bench import bank_actions, bank_tick, bench_actions
+from tpu_doom_torch.tools.banks import BANK5, BANK8, BANK_H, BANK_W, make_bank
 
 B_MAIN, W_MAIN, H_MAIN = 256, 320, 200
 WARMUP_TICKS, TIMED_TICKS, WINDOWS, FALLBACK_TICKS = 8, 32, 5, 4
@@ -166,6 +182,10 @@ LEGACY_TICKS = 150
 TRAJECTORY_DRIFT_CEILING = 1e-3  # tests/test_torch_sim.py
 B3_REL_TOL = 1e-6
 MAZE_PLAIN_ENVS = 16  # envs the plain B3 and B9 run on at the maze shape
+ENTRY_BANK_TICKS = 4  # timed ticks of the bank benchmark in phase 7
+ENTRY_REPLAYS = 4  # entry()'s replays held bitwise to eager ticks
+ENTRY_W, ENTRY_H = 64, 40  # entry() and the CLI runs of phase 7
+CLI_DUMP_TICKS = 21  # phase 7's dump-frames: frames after ticks 1, 11 and 21
 
 KERNELS = {
     "player_move": dict(
@@ -233,6 +253,17 @@ KERNELS = {
     "depth_peel_bank": dict(
         source="tpu_doom_torch/csrc/depth_peel.cu",
         replaces="tpu_doom/ops/raster_pallas.py:169"),
+    # The entry points' shapes at 64x40 (phase 7): B1 and B2 on entry()'s
+    # 2 envs, B3 on the CLI's one env under its default backend, "auto".
+    "player_move_entry": dict(
+        source="tpu_doom_torch/csrc/player_move.cu",
+        replaces="tpu_doom/ops/collision_pallas.py:358"),
+    "render_portal_fused_entry": dict(
+        source="tpu_doom_torch/csrc/render_portal.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:854"),
+    "peel_resolve_entry": dict(
+        source="tpu_doom_torch/csrc/peel_resolve.cu",
+        replaces="tpu_doom/ops/raster_pallas.py:322"),
     # The instruments' kernels (phase 4); no main-path segment launches them.
     "onehot_lookup": dict(
         source="tpu_doom_torch/csrc/onehot_lookup.cu",
@@ -262,20 +293,6 @@ class SmokeFailure(Exception):
 def require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def bench_actions(sim, batch):
-    """bench.py's ACTIVE actions: walk forward, per-env yaw rate drawn
-    from numpy's default_rng(0)."""
-    rng = np.random.default_rng(0)
-    look = np.stack([rng.uniform(-0.05, 0.05, batch).astype(np.float32),
-                     np.zeros(batch, np.float32)], axis=1)
-    acts = sim.null_actions(batch)
-    return acts._replace(
-        movement=torch.as_tensor(np.tile(np.array([[0.0, 1.0]], np.float32),
-                                         (batch, 1)), device=sim.device),
-        look=torch.as_tensor(look, device=sim.device),
-    )
 
 
 def time_ms(fn, calls=TIMING_CALLS, per_pair=1, warmup=2):
@@ -632,10 +649,31 @@ def phase_player_move(results, suffix, label, scene, cfg, state):
            sweeps * rows.shape[2] * SWEEP_TRI_OPS)
 
 
-def phase_kernels(results):
+def phase_portal(results, suffix, label, sim, state, width, height):
+    """B2 on the port's own walk of `state` of `sim` at width x height, at
+    0 px against its plain version, timed beside its bound -> its idx."""
     from tpu_doom_torch.ops import render_portal_fused, render_portal_fused_ref
     from tpu_doom_torch.render import portal as P
 
+    args, kw, _ = P.fused_inputs(sim.portal_scene(), sim.scene, sim.config,
+                                 width, height, state)
+    gi, gc = render_portal_fused(*args, **kw)
+    wi, wc = render_portal_fused_ref(*args, **kw)
+    torch.cuda.synchronize()
+    mism = int((gi != wi).sum()) + int((gc != wc).sum())
+    err = max(max_abs_err(gi, wi), max_abs_err(gc, wc))
+    ms, b2b = kernel_ms(lambda: render_portal_fused(*args, **kw))
+    plain = time_ms(lambda: render_portal_fused_ref(*args, **kw))
+    print(f"[kernel] B2 render_portal_fused {label} records {tuple(args[0].shape)}: "
+          f"{mism} mismatched idx/cov px (ceiling 0), max_abs_err {err};"
+          f" {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
+    require(mism == 0, f"B2 disagrees with its plain version on {label} on {mism} px")
+    record(results, "render_portal_fused" + suffix, err, ms, b2b, plain,
+           portal_bytes(args, kw), gi.numel() * SHADE_PIXEL_OPS)
+    return gi
+
+
+def phase_kernels(results):
     sim = make_sim()
     state = sim.reset()
     acts = bench_actions(sim, B_MAIN)
@@ -647,22 +685,7 @@ def phase_kernels(results):
                       sim.config, state)
 
     # B2 on the port's own walk output, 256 envs at 320x200.
-    args, kw, _ = P.fused_inputs(sim.portal_scene(), sim.scene, sim.config,
-                                 W_MAIN, H_MAIN, state)
-    gi, gc = render_portal_fused(*args, **kw)
-    wi, wc = render_portal_fused_ref(*args, **kw)
-    torch.cuda.synchronize()
-    mism = int((gi != wi).sum()) + int((gc != wc).sum())
-    err = max(max_abs_err(gi, wi), max_abs_err(gc, wc))
-    ms, b2b = kernel_ms(lambda: render_portal_fused(*args, **kw))
-    plain = time_ms(lambda: render_portal_fused_ref(*args, **kw))
-    print(f"[kernel] B2 render_portal_fused records {tuple(args[0].shape)}: "
-          f"{mism} mismatched idx/cov px (ceiling 0), max_abs_err {err};"
-          f" {ms:.4f} ms ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
-    require(mism == 0, f"B2 disagrees with its plain version on {mism} px")
-    record(results, "render_portal_fused", err, ms, b2b, plain,
-           portal_bytes(args, kw), gi.numel() * SHADE_PIXEL_OPS)
-    del args, gc, wi, wc
+    gi = phase_portal(results, "", ":test:", sim, state, W_MAIN, H_MAIN)
     phase_kernels_oracle(results, state, gi)
     del gi
 
@@ -709,13 +732,13 @@ def peel_tile_tests(rows, grid, width):
 
 
 def phase_peel(results, suffix, label, scene, cfg, state, plain_envs=None,
-               width=W_MAIN, height=H_MAIN):
-    """B3 and B9 on the triangle path's inputs for `state` of `scene` at
-    width x height, each against its plain version (where plain_envs is
-    given, on the first plain_envs envs, the plain version timed once),
-    timed beside its bound: the bytes of its inputs and output, or
-    PEEL_TEST_OPS per covering (pixel, triangle) pair (`peel_pairs`),
-    whichever takes longer."""
+               width=W_MAIN, height=H_MAIN, b9=True):
+    """B3 and B9 (B3 alone with b9=False) on the triangle path's inputs
+    for `state` of `scene` at width x height, each against its plain
+    version (where plain_envs is given, on the first plain_envs envs, the
+    plain version timed once), timed beside its bound: the bytes of its
+    inputs and output, or PEEL_TEST_OPS per covering (pixel, triangle)
+    pair (`peel_pairs`), whichever takes longer."""
     from tpu_doom_torch.ops import (
         depth_peel,
         depth_peel_ref,
@@ -764,6 +787,8 @@ def phase_peel(results, suffix, label, scene, cfg, state, plain_envs=None,
            nbytes(trows, tattrs, grid, yb, got), pairs * PEEL_TEST_OPS)
     b3z = got[:, :, 0].clone()
     del got
+    if not b9:
+        return
 
     # B9 on the same states: the "jnp" path's unsorted 16-column rows.
     prep = R.prepare(scene, cfg, width, height, state)
@@ -805,6 +830,45 @@ def phase_kernels_maze(results):
     require(bool((pitched.pitch.abs() > 0.0).all()), "the maze envs are not pitched")
     phase_peel(results, "_maze", f"{TEX_WAD} {B_MAIN // 2} pitched envs", sim.scene,
                sim.config, pitched, plain_envs=MAZE_PLAIN_ENVS)
+
+
+def entry_walk_actions(acts):
+    """Seeded walking, turning and pushing actions for entry()'s 2 envs
+    (tests/test_torch_cli.py's (e)), on the device of `acts`."""
+    rng = np.random.default_rng(5)
+    dev = acts.movement.device
+    return acts._replace(
+        movement=torch.as_tensor(rng.uniform(-1, 1, (2, 2)).astype(np.float32), device=dev),
+        look=torch.as_tensor(rng.uniform(-0.05, 0.05, (2, 2)).astype(np.float32), device=dev),
+        push=torch.tensor([True, False], device=dev))
+
+
+def phase_kernels_entry(results):
+    """The entry points' shapes (phase 7's): B1 and B2 on entry()'s 2 envs
+    at 64x40 after ENTRY_REPLAYS walking ticks, and B3 on the CLI's one
+    env under its default backend ("auto") after its dump-frames pilot's
+    CLI_DUMP_TICKS ticks, each against its plain version."""
+    from tpu_doom_torch import cli
+    from tpu_doom_torch.entry import entry, entry_sim
+
+    sim = entry_sim()
+    fn, (state, acts) = entry()
+    acts = entry_walk_actions(acts)
+    with torch.no_grad():
+        for _ in range(ENTRY_REPLAYS):
+            state, _ = fn(state, acts)
+    label = f"entry()'s 2 envs at {ENTRY_W}x{ENTRY_H}"
+    phase_player_move(results, "_entry", label, sim.scene, sim.config, state)
+    phase_portal(results, "_entry", label, sim, state, ENTRY_W, ENTRY_H)
+
+    csim = cli.make_sim(cli.build_parser().parse_args(
+        ["--iwad", ":test:", "-r", f"{ENTRY_W}x{ENTRY_H}"]))
+    state = csim.reset(1)
+    with torch.no_grad():
+        for t in range(CLI_DUMP_TICKS):
+            state = csim.step(state, cli.scripted_actions(csim, state, t))
+    phase_peel(results, "_entry", f"the CLI's env at {ENTRY_W}x{ENTRY_H} (auto)",
+               csim.scene, csim.config, state, width=ENTRY_W, height=ENTRY_H, b9=False)
 
 
 def phase_kernels_oracle(results, state, b2_idx=None, suffix="", label=":test:",
@@ -1950,26 +2014,202 @@ def phase_main(results):
                                         wad_file=TEX_WAD, **extra)
 
     segments.update(phase_bank())
+    return segments
+
+
+def tally(results, segments):
+    """Each kernel row's launches: summed over the segments and per
+    segment, the rows at the bank's and the maze's shapes split out."""
     for seg, c in segments.items():  # B2's global-table, B3's and B9's launches on :texstress:
         maze = "texstress" in seg
         c["render_portal_fused_texstress"] = (
             c["render_portal_fused"] - c["render_portal_fused_per_env"] if maze else 0)
+        # The bank's rows: its 640x400 segments (bank_big runs 320x200);
+        # entry_bank is config 5's tick.
         c["render_portal_fused_bank"] = (
-            c["render_portal_fused"] if seg in ("bank5", "bank8") else 0)
-        # The bank's rows: its 640x400 segments (bank_big runs 320x200).
-        at_bank = seg in ("bank5", "bank8", "bank_oracle", "bank_fallback")
+            c["render_portal_fused"] if seg in ("bank5", "bank8", "entry_bank") else 0)
+        at_bank = seg in ("bank5", "bank8", "bank_oracle", "bank_fallback", "entry_bank")
         for name in ("player_move", "classify_alpha", "shade_portal", "peel_resolve",
                      "depth_peel"):
             c[name + "_bank"] = c[name] if at_bank else 0
         c["peel_resolve_maze"] = c["peel_resolve"] if maze else 0
         c["depth_peel_maze"] = c["depth_peel"] if maze else 0
-    totals = {k: sum(c[k] for c in segments.values()) for k in results}
+        # The entry points' rows: the CLI's and entry()'s runs at 64x40.
+        at_entry = seg in ("entry_cli", "entry_fn")
+        for name in ("player_move", "render_portal_fused", "peel_resolve"):
+            c[name + "_entry"] = c[name] if at_entry else 0
+    totals = {k: sum(c.get(k, 0) for c in segments.values()) for k in results}
     for name, r in results.items():
         require(name in TOOL_KERNELS or totals[name] > 0,
                 f"{name} never launched on the main path")
         r.update(launches=totals[name],
-                 **{f"{seg}_launches": c[name] for seg, c in segments.items()})
-    return list(segments)
+                 **{f"{seg}_launches": c.get(name, 0) for seg, c in segments.items()})
+
+
+ENTRY_TIMEOUT = 300  # seconds per entry-point subprocess
+
+
+def entry_point(tag, args, needed=(), **env):
+    """`python3 -m <args>` on the card in a subprocess with `env` added:
+    its JSON line (the last of its stdout) and its own launch counts (its
+    stderr's `launches` line, from just before its timed window to just
+    after). Prints the JSON line and its stderr's summary lines; fails the
+    run if it fails, prints no JSON line, or launched a `needed` kernel
+    no time."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                       timeout=ENTRY_TIMEOUT, env={**os.environ, **env})
+    secs = time.perf_counter() - t0
+    command = " ".join([f"{k}={v}" for k, v in env.items()] + ["python3 -m", *args])
+    for line in r.stderr.splitlines():
+        if line.startswith(("bench ", "bank ", "Traceback", "RuntimeError")):
+            print(f"[{tag}] {line}")
+    lines = r.stdout.strip().splitlines()
+    print(f"[{tag}] {command}: rc {r.returncode} in {secs:.1f} s")
+    require(r.returncode == 0 and lines, f"{tag}: {command} failed: {r.stderr[-2000:]}")
+    print(f"[{tag}] {lines[-1]}")
+    out = json.loads(lines[-1])
+    counts = [json.loads(x[len("launches "):]) for x in r.stderr.splitlines()
+              if x.startswith("launches ")]
+    require(len(counts) == 1, f"{tag}: no launch counts printed")
+    for name in needed:
+        require(counts[0][name] > 0, f"{tag}: {name} was not launched")
+    return out, counts[0]
+
+
+@contextlib.contextmanager
+def segment(segments, tag):
+    """The launch counts set to 0 before the block and read into
+    segments[tag] after it."""
+    reset_counts()
+    yield
+    segments[tag] = read_counts()
+
+
+def entry_fn_segment(tag, out_dir):
+    """tpu_doom_torch.entry's fn captured as one graph with seeded walking
+    actions, 4 replays bitwise equal to 4 eager ticks; the same 4 ticks
+    from CPU copies of the state and actions (the kernels' plain
+    versions) held to the card's; then the card state through a
+    checkpoint, bitwise."""
+    from tpu_doom_torch.entry import entry
+    from tpu_doom_torch.graphs import CapturedTick
+    from tpu_doom_torch.sim.state import Actions, SimState
+    from tpu_doom_torch.utils.checkpoint import load_state, save_state
+
+    fn, (state, acts) = entry()
+    cpu_fn, _ = entry(device="cpu")
+    acts = entry_walk_actions(acts)
+    cpu_state = SimState(*(x.cpu() for x in state))
+    cpu_acts = Actions(*(x.cpu() for x in acts))
+    graph = CapturedTick(fn, SimState(*(x.clone() for x in state)), acts)
+    same = same_cpu = True
+    for _ in range(ENTRY_REPLAYS):
+        with torch.no_grad():
+            state, frames = fn(state, acts)
+            cpu_state, cpu_frames = cpu_fn(cpu_state, cpu_acts)
+        graph.replay()
+        same = (same and torch.equal(graph.outs[0], frames)
+                and all(torch.equal(a, b) for a, b in zip(graph.state_buf, state)))
+        same_cpu = (same_cpu and torch.equal(frames.cpu(), cpu_frames)
+                    and all(torch.equal(a.cpu(), b) for a, b in zip(state, cpu_state)))
+    print(f"[{tag}] entry(): fn captured, {ENTRY_REPLAYS} replays against as many eager"
+          f" ticks: state and frames {tuple(frames.shape)} bitwise equal {same}; kernel"
+          f" launches per replay {graph.launches}")
+    print(f"[{tag}] entry(): the same {ENTRY_REPLAYS} ticks from CPU copies (the plain"
+          f" versions): state and frames bitwise equal to the card's {same_cpu}")
+    require(same, f"{tag}: entry()'s replays differ from its eager ticks")
+    require(same_cpu, f"{tag}: entry()'s card ticks differ from its CPU ticks")
+    path = os.path.join(out_dir, "state.npz")
+    save_state(path, state, tick=ENTRY_REPLAYS)
+    back, meta = load_state(path)
+    same = all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(back, state))
+    print(f"[{tag}] checkpoint of the card state ({len(state)} fields) saved and loaded"
+          f" back on {back.pos.device}: bitwise equal {same}, meta {dict(meta)}")
+    require(same and int(meta["tick"]) == ENTRY_REPLAYS, f"{tag}: checkpoint round trip")
+
+
+def cli_dump_against_cpu(tag, cli, out, backend):
+    """The CLI's dump-frames under `backend` (None: its default) on the
+    card, then with --device cpu: the card's frames and manifest bitwise
+    the CPU's."""
+    dump = ["dump-frames", "--ticks", str(CLI_DUMP_TICKS), "--every", "10"]
+    chosen = ["--backend", backend] if backend else []
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        argv = ["--device", dev, "--iwad", ":test:", "-r", f"{ENTRY_W}x{ENTRY_H}",
+                *chosen, *dump, "--out", f"{out}/{dev}"]
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        print(f"[{tag}] python -m tpu_doom_torch.cli {' '.join(argv)}: rc {rc} in"
+              f" {time.perf_counter() - t0:.1f} s")
+        require(rc == 0, f"{tag}: dump-frames on {dev} failed")
+        with open(f"{out}/{dev}/manifest.json") as f:
+            runs[dev] = json.load(f)
+    card, cpu = runs["cuda"], runs["cpu"]
+    px = 0
+    for f in card["frames"]:
+        fa, fb = (np.load(f"{out}/{d}/{f['file']}") for d in ("cuda", "cpu"))
+        require(fa.shape == fb.shape == (ENTRY_H, ENTRY_W), f"{tag}: frame shape {fa.shape}")
+        px += int((fa != fb).sum())
+    name = backend or "auto (the default)"
+    print(f"[{tag}] dump-frames under {name}, card vs CPU: manifests (poses included)"
+          f" equal {card == cpu}, {len(card['frames'])} frames, {px} px differ (ceiling 0)")
+    require(card == cpu and len(card["frames"]) == 3 and px == 0,
+            f"{tag}: dump-frames under {name} differs between the card and the CPU")
+
+
+def phase_entry_points():
+    """Phase 7: the port's entry points on the card -> {segment: launch
+    counts}."""
+    import tempfile
+
+    from tpu_doom_torch import cli
+
+    torch.cuda.empty_cache()  # the subprocesses' memory
+    segments = {}
+    main_needed = ("player_move", "render_portal_fused")
+    _, segments["entry_bench"] = entry_point(
+        "entry_bench", ["tpu_doom_torch.bench"], main_needed)
+    _, segments["entry_bank"] = entry_point(
+        "entry_bank", ["tpu_doom_torch.bench"], main_needed, BENCH_BANK="1",
+        BENCH_TICKS=str(ENTRY_BANK_TICKS))
+    out, segments["entry_verify"] = entry_point(
+        "entry_verify", ["tpu_doom_torch.bench", "--verify"],
+        ("render_portal_fused", "classify_alpha", "shade_portal", "peel_resolve",
+         "depth_peel", "select_rows", "scatter_live", "gather_cells"))
+    for leg, r in out["legs"].items():
+        print(f"[entry_verify] {leg}: portal vs portal_jnp {r['mismatch_px']} px,"
+              f" {r['mismatch_cov']} cov; JAX golden {r['golden_px']} px, {r['golden_cov']}"
+              f" cov ({r['golden_per']}, px ceiling {r['golden_ceiling']}); pass {r['pass']}")
+    require(out["pass"] and len(out["legs"]) == 7, "entry_verify: --verify failed")
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        with segment(segments, "entry_cli"):
+            base = ["--iwad", ":test:", "-r", f"{ENTRY_W}x{ENTRY_H}"]
+            for args in (["list-levels"], ["check"], ["bench", "--ticks", "8"],
+                         ["demo", "--ticks", "3", "--every", "2", "--out", f"{tmp}/demo"]):
+                t0 = time.perf_counter()
+                rc = cli.main(base + args)
+                print(f"[entry_cli] python -m tpu_doom_torch.cli {' '.join(base + args)}:"
+                      f" rc {rc} in {time.perf_counter() - t0:.1f} s")
+                require(rc == 0, f"entry_cli: {args[0]} failed")
+            for backend in ("portal", None):
+                cli_dump_against_cpu("entry_cli", cli, f"{tmp}/dump_{backend or 'auto'}",
+                                     backend)
+            pngs = [x for x in os.listdir(f"{tmp}/demo") if x.endswith(".png")]
+        print(f"[entry_cli] demo wrote {len(pngs)} PNGs; launches {segments['entry_cli']}")
+        require(len(pngs) == 2, "entry_cli: demo wrote too little")
+        with segment(segments, "entry_fn"):
+            entry_fn_segment("entry_fn", tmp)
+    # The CLI's default backend, "auto", renders through B3; one of its
+    # dump-frames runs "portal" (B2).
+    for seg, names in (("entry_cli", main_needed + ("peel_resolve",)),
+                       ("entry_fn", main_needed)):
+        for name in names:
+            require(segments[seg][name] > 0, f"{seg}: {name} did not run")
+    return segments
 
 
 def main():
@@ -1982,10 +2222,13 @@ def main():
     phase_kernels_maze(results)
     phase_kernels_texstress(results)
     phase_kernels_bank(results)
+    phase_kernels_entry(results)
     phase_tools(results)
     phase_goldens()
     phase_goldens_hires()
     segments = phase_main(results)
+    segments.update(phase_entry_points())
+    tally(results, segments)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "ms_b2b", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "library_ms_b2b", *(f"{seg}_launches" for seg in segments))

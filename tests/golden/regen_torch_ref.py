@@ -1,7 +1,7 @@
 """Regenerate the reference frames the PyTorch port is held to on a GPU.
 
 Run from the repo root (JAX on the CPU):
-    JAX_PLATFORMS=cpu python tests/golden/regen_torch_ref.py [test|texstress|640x400|bank|doom2]
+    JAX_PLATFORMS=cpu python tests/golden/regen_torch_ref.py [test|texstress|texstress8|640x400|bank|doom2]
 (no argument writes every file). Each renders its states through the JAX
 package's `portal_jnp` path:
 * verify_ref.npz: the 8 feature-covering verify poses of bench.py on
@@ -18,6 +18,9 @@ package's `portal_jnp` path:
   the two JAX renders disagree on two of the 8 envs (74 and 95 px, in a
   floor strip on the CPU); the port is held to the staged frames, and
   the script prints the disagreement.
+* verify_texstress8_ref.npz: the same 8 states at
+  portal_compact_crossings=8 (bench.py's `texstress8` verify leg), run
+  op by op (`idx`/`cov`) and jitted stage by stage (`idx_jit`/`cov_jit`);
 * verify_640x400_ref.npz: the 8 verify poses at 640x400 (bench.py's
   `640x400` verify leg), as verify_ref.npz;
 * verify_bank_ref.npz: bench.py's `bank` verify leg (bench.py:148-187)
@@ -63,6 +66,7 @@ WIDTH, HEIGHT, CROSSINGS = 320, 200, 12
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "verify_ref.npz")
 OUT_TEXSTRESS = os.path.join(HERE, "verify_texstress_ref.npz")
+OUT_TEXSTRESS8 = os.path.join(HERE, "verify_texstress8_ref.npz")
 OUT_640 = os.path.join(HERE, "verify_640x400_ref.npz")
 OUT_BANK = os.path.join(HERE, "verify_bank_ref.npz")
 OUT_DOOM2 = os.path.join(HERE, "verify_doom2_ref.npz")
@@ -184,6 +188,37 @@ def write_texstress_ref():
           (cov_f != cov).sum(axis=(1, 2)).tolist())
 
 
+def write_texstress8_ref():
+    """bench.py's `texstress8` verify leg: the 8 states of
+    verify_texstress_ref.npz (loaded, not re-stepped) rendered through
+    portal_jnp at portal_compact_crossings=8, where envs with more than 8
+    live crossings (and env 1, pitched) take the triangle path. `idx`/
+    `cov`: every stage run op by op under jax.disable_jit(), each
+    primitive its own program, nothing fused; `idx_jit`/`cov_jit`: the
+    same stages jitted (`portal_jnp_staged`), which on the CPU differ from
+    it in a floor strip of two envs (the script prints the counts). The
+    port is held to the op-by-op frames. ~5 min."""
+    from tpu_doom.models import DoomSim
+    from tpu_doom.sim.state import SimState
+    from tpu_doom.utils.config import GameConfig, PlayerConfig
+
+    with np.load(OUT_TEXSTRESS) as z:
+        state = SimState(**{k: jnp.asarray(z[k]) for k in SimState._fields})
+    b = state.pos.shape[0]
+    sim = DoomSim(GameConfig(
+        wad_file=":texstress:", width=WIDTH, height=HEIGHT, batch_size=b,
+        raster_backend="portal_jnp", render_env_chunk=0, portal_compact_crossings=8,
+        player=PlayerConfig(clip_substeps=1),
+    ))
+    idx_j, cov_j = portal_jnp_staged(sim, state, WIDTH, HEIGHT)
+    with jax.disable_jit():
+        idx, cov = portal_jnp_staged(sim, state, WIDTH, HEIGHT)
+    np.savez_compressed(OUT_TEXSTRESS8, idx=idx, cov=cov, idx_jit=idx_j, cov_jit=cov_j)
+    print("wrote", OUT_TEXSTRESS8, "; jitted vs op-by-op render, px per env:",
+          (idx_j != idx).sum(axis=(1, 2)).tolist(), "cov:",
+          (cov_j != cov).sum(axis=(1, 2)).tolist())
+
+
 def write_640_ref():
     """bench.py:201 (`640x400`): the verify poses at 640x400."""
     from tpu_doom.models import DoomSim
@@ -261,6 +296,7 @@ def write_doom2_ref():
 
 def main(argv):
     writers = {"test": write_test_ref, "texstress": write_texstress_ref,
+               "texstress8": write_texstress8_ref,
                "640x400": write_640_ref, "bank": write_bank_ref,
                "doom2": write_doom2_ref}
     for name in argv[1:] or list(writers):

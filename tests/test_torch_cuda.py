@@ -752,3 +752,38 @@ def test_legacy_step_on_card(cuda_device):
         drift = max(drift, float((states[1].pos - states[0].pos).abs().max()))
         assert all(torch.equal(x, y) for x, y in zip(states[1], states[2]))
     assert drift <= 1e-3, drift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["sim", "bank"])
+def test_bench_replays_equal_eager_ticks_on_card(cuda_device, which):
+    """On the card: tpu_doom_torch.bench's timing (its tick captured as one
+    graph, 1 warm-up replay, 3 timed) ends bitwise where 4 eager ticks
+    end, checksum included: bench.py's tick on :test: with a pitched env
+    on the triangle fallback, and bank_main's tick on config 5's members."""
+    from tpu_doom_torch import bench
+    from tpu_doom_torch.utils.config import PlayerConfig
+
+    zero = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    if which == "sim":
+        sim = TorchSim(GameConfig(wad_file=":test:", width=64, height=40, batch_size=4,
+                                  raster_backend="portal", portal_pitch="triangle",
+                                  player=PlayerConfig(clip_substeps=4)), cuda_device)
+        s = sim.reset()
+        s = s._replace(pitch=torch.tensor([1e-8, 0.3, 1e-8, 1e-8], device=cuda_device))
+        tick, start, acts = bench.sim_tick(sim, 64, 40), (s, zero), bench.bench_actions(sim, 4)
+    else:
+        bank = _bank(CONFIG5, cuda_device)
+        L, E = bank.num_levels, 4
+        start = (bank.reset(E), torch.ones((L, E), dtype=torch.bool, device=cuda_device), zero)
+        tick, acts = bench.bank_check_tick(bank, 64, 40), bench.bank_actions(L, E, cuda_device)
+    carry = tuple(type(x)(*(y.clone() for y in x)) if isinstance(x, tuple) else x.clone()
+                  for x in start)
+    timing = bench.time_ticks(tick, carry, acts, 3, warmup=1)
+    with torch.no_grad():
+        for _ in range(4):
+            (start,) = tick(start, acts)
+    for got, want in zip(timing.state, start):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(timing.state[-1]) > 0 and timing.launches["player_move"] >= 3

@@ -61,14 +61,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import action_seq, bench_actions, capture_bank_tick, make_sim  # noqa: E402
-from tpu_doom_torch.tools.banks import (  # noqa: E402
-    BANK5,
-    BANK8,
-    bank_actions,
-    bank_tick,
-    make_bank,
-)
+from chip_smoke import action_seq, capture_bank_tick, make_sim  # noqa: E402
+from tpu_doom_torch.bench import bank_actions, bank_tick, bench_actions  # noqa: E402
+from tpu_doom_torch.tools.banks import BANK5, BANK8, make_bank  # noqa: E402
 from tpu_doom_torch.render import portal as P  # noqa: E402
 
 # Substrings of the profiler's kernel names. "render_portal_kernel" also

@@ -12,8 +12,8 @@ loop eagerly. The portal backend renders every level, big ones (more
 than 192 walk rows, such as `:stress:` and `:texstress:`) through the
 big-level walk and, when the level's texel table exceeds
 `portal_global_segs_max`, the active-set path. Mixed-level batches are
-`models.level_bank.LevelBank`'s. Checkpoints and the CLI are not ported
-yet (ROADMAP A).
+`models.level_bank.LevelBank`'s. Checkpoints are `utils/checkpoint.py`,
+the CLI `tpu_doom_torch.cli`.
 """
 
 from __future__ import annotations
@@ -40,6 +40,16 @@ from ..wad.meta import WadMetadata
 from ..wad.tex import TextureDirectory
 
 log = logging.getLogger(__name__)
+
+
+def checked_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises
+    rather than falling back to the CPU (the CPU must be asked for)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} asked for, but torch sees no CUDA card;"
+                           " pass device='cpu' to run the kernels' plain versions")
+    return dev
 
 
 def open_wad(wad_file: str) -> Archive:
@@ -75,7 +85,7 @@ class DoomSim:
         check_raster_backend(config.raster_backend)
         check_collision_config(config.player)
         self.config = config
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         t0 = _time.time()
         self.wad = open_wad(config.wad_file)
         self.metadata = WadMetadata.from_file(config.metadata_file)

@@ -38,6 +38,7 @@ from ..sim.scene import Scene, scene_from_arrays
 from ..sim.state import SimState, initial_state
 from ..sim.step import check_collision_config
 from ..sim.step import step as sim_step
+from .doom_sim import checked_device
 
 
 def _pad_to(a: np.ndarray, shape, fill) -> np.ndarray:
@@ -184,7 +185,7 @@ class LevelBank:
         check_raster_backend(cfg.raster_backend)
         check_collision_config(cfg.player)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         padded = pad_level_arrays(levels)
         self.num_objects = padded[0].num_objects
         self.scenes = _stack([scene_from_arrays(a, self.device)[0] for a in padded])
@@ -272,14 +273,19 @@ class LevelBank:
         """Render all (L, E) envs through the configured backend, one
         level at a time -> (indices (L, E, H, W) u8, covered (L, E, H, W)
         bool)."""
-        w = width or self.cfg.width
-        h = height or self.cfg.height
+        outs = [self.render_level(state, lv, width, height, scenes, pscenes)
+                for lv in range(self.num_levels)]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+    @torch.no_grad()
+    def render_level(self, state: SimState, lv: int, width=None, height=None,
+                     scenes: Scene = None, pscenes: dict = None):
+        """Render level `lv`'s E envs of the (L, E) `state` -> (indices (E,
+        H, W) u8, covered (E, H, W) bool): one level's frames, so that a
+        caller reducing them as they come never holds every level's."""
         scenes = self.scenes if scenes is None else scenes
         pscenes = self.pscenes if pscenes is None else pscenes
-        outs = [
-            render_dispatch(self._at(scenes, lv),
-                            None if pscenes is None else self._at(pscenes, lv),
-                            self.cfg, self._at(state, lv), w, h)
-            for lv in range(self.num_levels)
-        ]
-        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+        return render_dispatch(self._at(scenes, lv),
+                               None if pscenes is None else self._at(pscenes, lv),
+                               self.cfg, self._at(state, lv), width or self.cfg.width,
+                               height or self.cfg.height)
