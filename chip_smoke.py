@@ -143,6 +143,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
        equal to the card's in state and frames; then a checkpoint of the
        card state saved and loaded back, bitwise.
      A subprocess that fails, or prints no JSON line, fails the run.
+  8. parallel (tpu_doom_torch.parallel, entry.dryrun_multichip), each a
+     segment with its launch counts (a world's summed over its ranks):
+     parallel_dp1_nccl: dryrun_multichip(1), a world of one NCCL rank in
+       a process of its own, both legs (:test: 2 envs at 320x200 through
+       portal, one step + render; the E1M1 + MAP01 bank, one
+       step_with_exits + render) captured with their collectives and
+       replayed once, each held bitwise to the same tick unsharded and
+       eager here, frames and state; its mean_metric equal to x.mean();
+     parallel_dp2_gloo: dryrun_multichip(2, backend="gloo"), two ranks on
+       this card, eagerly: each rank's state shard and frames bitwise the
+       same envs of the unsharded run, the metrics equal on both ranks;
+     parallel_bank5_sharded: config 5 through the bank under the mesh of
+       a world of one NCCL rank (a process of its own), captured with the
+       all-gather of its exit migration inside, 8 replays bitwise equal to
+       the unsharded captured bank tick's in state, active mask and
+       frames; env*frames/s and device ms per replay of both, in turns,
+       and the all-gather's device us per call (numbers to record).
+     A rank that fails, or prints no OK line, fails the run.
 The last two lines: the kernels' JSON summary (launches summed over the
 main-path segments, and per segment), then the device JSON.
 Imports neither JAX nor the JAX package: the GPU machine has neither.
@@ -151,6 +169,7 @@ Imports neither JAX nor the JAX package: the GPU machine has neither.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
 import os
 import subprocess
@@ -162,8 +181,10 @@ import torch
 
 from tpu_doom_torch.bench import bank_actions, bank_tick, bench_actions
 from tpu_doom_torch.tools.banks import BANK5, BANK8, BANK_H, BANK_W, make_bank
+from tpu_doom_torch.tools.fixtures import (B_MAIN, H_MAIN, W_MAIN, action_seq,
+                                           capture_bank_tick, fallback_sim, make_sim,
+                                           verify_ref, verify_state)
 
-B_MAIN, W_MAIN, H_MAIN = 256, 320, 200
 WARMUP_TICKS, TIMED_TICKS, WINDOWS, FALLBACK_TICKS = 8, 32, 5, 4
 TEX_WAD, TEX_CAP = ":texstress:", 1024  # portal_global_segs_max of the active set
 TEX_WARMUP, TEX_TICKS, TEX_WINDOWS = 4, 8, 3
@@ -186,6 +207,9 @@ ENTRY_BANK_TICKS = 4  # timed ticks of the bank benchmark in phase 7
 ENTRY_REPLAYS = 4  # entry()'s replays held bitwise to eager ticks
 ENTRY_W, ENTRY_H = 64, 40  # entry() and the CLI runs of phase 7
 CLI_DUMP_TICKS = 21  # phase 7's dump-frames: frames after ticks 1, 11 and 21
+PARALLEL_REPLAYS = 8  # phase 8: sharded bank replays held bitwise to unsharded ones
+GATHER_CALLS = 32  # phase 8: timed calls of the bank's all-gather alone
+MEAN_METRIC_RTOL = 1e-6  # mean_metric against x.mean(): the order of the sums
 
 KERNELS = {
     "player_move": dict(
@@ -583,34 +607,6 @@ def phase_build():
     print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} -> {path} in {secs:.2f} s")
     for line in _build.ptxas_usage(path):
         print(f"[build] ptxas {line}")
-
-
-def make_sim(device="cuda", **kw):
-    from tpu_doom_torch.models import DoomSim
-    from tpu_doom_torch.utils.config import GameConfig, PlayerConfig
-
-    base = dict(wad_file=":test:", width=W_MAIN, height=H_MAIN,
-                batch_size=B_MAIN, raster_backend="portal",
-                player=PlayerConfig(clip_substeps=4))
-    base.update(kw)
-    return DoomSim(GameConfig(**base), device)
-
-
-def verify_ref():
-    with np.load("tests/golden/verify_ref.npz") as z:
-        return {k: z[k] for k in z.files}
-
-
-def verify_state(sim, ref):
-    s = sim.reset(ref["pos"].shape[0])
-    dev = sim.device
-    return s._replace(
-        pos=torch.as_tensor(ref["pos"], device=dev),
-        yaw=torch.as_tensor(ref["yaw"], device=dev),
-        time=torch.as_tensor(ref["time"], device=dev),
-        pitch=torch.as_tensor(ref["pitch"], device=dev),
-        object_offset=torch.as_tensor(ref["object_offset"], device=dev),
-    )
 
 
 def phase_player_move(results, suffix, label, scene, cfg, state):
@@ -1427,17 +1423,6 @@ def phase_golden_frames(golden, sim, label):
         require(cov_eq and n <= PX_CEILING, f"golden {name} failed ({label})")
 
 
-def fallback_sim(**kw):
-    """The same DoomSim with portal_pitch="triangle" and half the envs
-    pitched 0.3: every pitched env takes the triangle fallback (B3, or B9
-    under portal_jnp)."""
-    sim = make_sim(portal_pitch="triangle", **kw)
-    state = sim.reset()
-    pitch = state.pitch.clone()
-    pitch[: B_MAIN // 2] = 0.3
-    return sim, state._replace(pitch=pitch), bench_actions(sim, B_MAIN)
-
-
 def run_ticks(sim, state, acts, ticks):
     """`ticks` ticks of step + render -> (state, checksum, coverage sum)
     as device scalars."""
@@ -1518,13 +1503,6 @@ def fallback_segment(tag, sim, state, acts, needed):
     require(counts[needed] > 0, f"{tag}: {needed} did not run in the fallback")
     require(coverage > 0.5, f"{tag}: coverage {coverage} <= 0.5")
     return counts, B_MAIN * FALLBACK_TICKS / dt
-
-
-def action_seq(acts, n):
-    """The (n, B, ...) sequence of `acts` repeated n times, on the card."""
-    from tpu_doom_torch.sim.state import Actions
-
-    return Actions(*(x.expand((n,) + x.shape).contiguous() for x in acts))
 
 
 def rollout_segment(tag, label, sim, state, acts, windows, ticks, needed, eager):
@@ -1641,19 +1619,6 @@ def time_unconditional_fallback(tag, label, graph_rate, **kw):
           f" {max(rates):.1f}) against {graph_rate:.1f} with the conditional node:"
           f" {B_MAIN / median * 1e3 - B_MAIN / graph_rate * 1e3:.4f} ms more per tick")
     require(same, f"{tag}: the unconditional fallback differs from eager")
-
-
-def capture_bank_tick(bank, state, active, acts, width, height):
-    """The bank tick captured as one CUDA graph (graphs.CapturedTick: the
-    state and the active mask written back into its buffers `state_buf`,
-    the actions read from `actions_buf`, every level's triangle fallback
-    a WHILE node)."""
-    from tpu_doom_torch.graphs import CapturedTick
-    from tpu_doom_torch.sim.state import Actions, SimState
-
-    return CapturedTick(bank_tick(bank, width, height),
-                        (SimState(*(x.clone() for x in state)), active.clone()),
-                        Actions(*(x.clone() for x in acts)))
 
 
 def lockstep(graph, tick, state, active, acts, ticks):
@@ -2025,10 +1990,10 @@ def tally(results, segments):
         c["render_portal_fused_texstress"] = (
             c["render_portal_fused"] - c["render_portal_fused_per_env"] if maze else 0)
         # The bank's rows: its 640x400 segments (bank_big runs 320x200);
-        # entry_bank is config 5's tick.
-        c["render_portal_fused_bank"] = (
-            c["render_portal_fused"] if seg in ("bank5", "bank8", "entry_bank") else 0)
-        at_bank = seg in ("bank5", "bank8", "bank_oracle", "bank_fallback", "entry_bank")
+        # entry_bank and parallel_bank5_sharded are config 5's tick.
+        config5 = ("bank5", "bank8", "entry_bank", "parallel_bank5_sharded")
+        c["render_portal_fused_bank"] = c["render_portal_fused"] if seg in config5 else 0
+        at_bank = seg in config5 + ("bank_oracle", "bank_fallback")
         for name in ("player_move", "classify_alpha", "shade_portal", "peel_resolve",
                      "depth_peel"):
             c[name + "_bank"] = c[name] if at_bank else 0
@@ -2212,7 +2177,165 @@ def phase_entry_points():
     return segments
 
 
+def _same(a, b):
+    return np.array_equal(a, b.cpu().numpy())
+
+
+def parallel_world(tag, n, backend=None):
+    """`dryrun_multichip(n)` at its default shapes in a new world of n
+    processes on the card (NCCL unless `backend`), each rank held to the
+    same envs of `entry.dryrun_reference`: state shard and frame band bitwise
+    in both legs (and the bank's active mask and moved envs). Every rank
+    must have printed both OK lines and agree on the metrics. Returns
+    (the ranks' results, their launch counts summed)."""
+    from tpu_doom_torch.entry import dryrun_multichip, dryrun_reference
+
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(n, backend=backend)
+    secs = time.perf_counter() - t0
+    (state, frames, covered), (bstate, active, moved, bidx) = dryrun_reference(
+        ranks[0]["mesh"][0])
+    counts = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        envs, rows, benvs = slice(*r["envs"]), slice(*r["rows"]), slice(*r["bank"]["envs"])
+        main_same = _same(r["frames"], frames[envs, rows]) and all(
+            _same(a, b[envs]) for a, b in zip(r["state"], state))
+        b = r["bank"]
+        bank_same = (_same(b["frames"], bidx[:, benvs, rows]) and _same(b["active"],
+                     active[:, benvs]) and _same(b["moved"], moved[:, benvs])
+                     and all(_same(x, y[:, benvs]) for x, y in zip(b["state"], bstate)))
+        oks = [x for x in r["lines"] if x.startswith(("dryrun_multichip OK:",
+                                                     "dryrun_multichip bank leg OK:"))]
+        print(f"[{tag}] rank {r['rank']} of {n}: mesh (dp, tp) {r['mesh']}, captured"
+              f" {r['captured']}, envs {r['envs']}, rows {r['rows']}: main leg state and"
+              f" frames bitwise the unsharded tick's {main_same}; bank leg envs"
+              f" {b['envs']}: state, active, moved and frames bitwise {bank_same};"
+              f" metrics {r['metrics']}; OK lines {len(oks)}")
+        require(len(oks) == 2, f"{tag}: rank {r['rank']} printed {len(oks)} of 2 OK lines")
+        require(main_same and bank_same, f"{tag}: rank {r['rank']} differs from the"
+                " unsharded run")
+        require(r["captured"] == (backend is None), f"{tag}: captured {r['captured']}")
+    full = {"coverage": float(covered.float().mean()), "mean_y": float(state.pos[:, 1].mean())}
+    rel = {k: abs(ranks[0]["metrics"][k] - v) / abs(v) for k, v in full.items()}
+    agree = all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+    print(f"[{tag}] dryrun_multichip({n}{'' if backend is None else f', backend={backend!r}'})"
+          f" in {secs:.1f} s: mean_metric {ranks[0]['metrics']} equal on every rank {agree};"
+          f" x.mean() of the unsharded tick {full}, relative difference {rel}; launches"
+          f" {counts}")
+    require(agree, f"{tag}: the ranks' metrics differ")
+    if n == 1:
+        require(ranks[0]["metrics"] == full, f"{tag}: mean_metric is not x.mean()")
+    require(max(rel.values()) <= MEAN_METRIC_RTOL, f"{tag}: mean_metric off by {rel}")
+    return ranks, counts
+
+
+def bank5_sharded_rank(tag):
+    """The rank of a world of one NCCL rank that `bank5_sharded_segment`
+    starts: BASELINE config 5 through the bank under its (1, 1) mesh, the
+    tick captured with the all-gather inside, next to the unsharded
+    captured bank tick: PARALLEL_REPLAYS replays of each in lockstep,
+    bitwise equal in state, active mask and frames; then windows of
+    BANK_TICKS replays in turns (unsharded, sharded, sharded, unsharded,
+    each pair over the same ticks), env*frames/s (host clock ending in a
+    synchronize) and device ms per replay (CUDA events); and the
+    all-gather alone, the tick's gather on the same masks, eager and
+    captured (device us per call). Numbers to record, not a gate.
+    Returns the launch counts."""
+    from tpu_doom_torch.parallel import make_mesh
+    from tpu_doom_torch.parallel.mesh import gather_envs
+
+    mesh = make_mesh(1, 1)
+    reset_counts()
+    graphs = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        bank = make_bank(BANK5, mesh=m)
+        L = bank.num_levels
+        active = torch.ones((L, BANK5_E), dtype=torch.bool, device="cuda")
+        graphs[name] = capture_bank_tick(bank, bank.reset(BANK5_E), active,
+                                         bank_actions(L, BANK5_E), BANK_W, BANK_H)
+        print(f"[{tag}] {name} config 5 bank tick captured", flush=True)
+    plain, sharded = graphs["unsharded"], graphs["sharded"]
+
+    def same():
+        return (torch.equal(plain.outs[0], sharded.outs[0])
+                and torch.equal(plain.state_buf[1], sharded.state_buf[1])
+                and all(torch.equal(a, b) for a, b in zip(plain.state_buf[0],
+                                                           sharded.state_buf[0])))
+
+    equal = True
+    for _ in range(PARALLEL_REPLAYS):
+        plain.replay()
+        sharded.replay()
+        equal = equal and same()
+    print(f"[{tag}] config 5 ({L} x {BANK5_E} envs at {BANK_W}x{BANK_H}) in a world of"
+          f" one NCCL rank: {PARALLEL_REPLAYS} replays of the sharded bank tick against as"
+          f" many of the unsharded one: state, active mask and frames bitwise equal"
+          f" {equal}; kernel launches per replay, sharded {sharded.launches}", flush=True)
+    require(equal, f"{tag}: the sharded bank tick differs from the unsharded one")
+    rates = {"unsharded": [], "sharded": []}
+    dev_ms = {"unsharded": [], "sharded": []}
+    for order in (("unsharded", "sharded"), ("sharded", "unsharded")):
+        for name in order:
+            g = graphs[name]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(BANK_TICKS):
+                g.replay()
+            end.record()
+            torch.cuda.synchronize()
+            rates[name].append(L * BANK5_E * BANK_TICKS / (time.perf_counter() - t0))
+            dev_ms[name].append(start.elapsed_time(end) / BANK_TICKS)
+    equal = same()
+    masks = torch.ones((2, L, BANK5_E), dtype=torch.bool, device="cuda")
+    gather_eager = time_ms(lambda: gather_envs(masks, mesh, axis=2), calls=GATHER_CALLS)
+    gather_graph = graph_ms(lambda: gather_envs(masks, mesh, axis=2))
+    counts = read_counts()
+    summary = {name: dict(env_frames_per_s=[round(x, 1) for x in rates[name]],
+                          device_ms_per_replay=[round(x, 4) for x in dev_ms[name]])
+               for name in rates}
+    cost = float(np.mean(dev_ms["sharded"]) - np.mean(dev_ms["unsharded"]))
+    print(f"[{tag}] windows of {BANK_TICKS} replays in turns (unsharded, sharded, sharded,"
+          f" unsharded): {json.dumps(summary)}; sharded minus unsharded {cost * 1e3:.1f} us"
+          f" of device time per replay; final states bitwise equal {equal}")
+    print(f"[{tag}] the tick's all-gather ({masks.numel()} bytes of masks over a 'dp'"
+          f" group of one): {gather_eager * 1e3:.2f} us per call eager,"
+          f" {gather_graph * 1e3:.2f} us captured (device time, CUDA events)", flush=True)
+    require(equal, f"{tag}: the timed replays end apart")
+    return counts
+
+
+def bank5_sharded_segment(tag):
+    """`bank5_sharded_rank` in a world of one NCCL rank, a process of its
+    own (as `parallel_dp1_nccl`) -> its launch counts."""
+    from tpu_doom_torch.parallel import launch
+
+    torch.cuda.empty_cache()
+    (counts,) = launch(1, bank5_sharded_rank, tag)
+    return counts
+
+
+def phase_parallel():
+    """Phase 8: tpu_doom_torch.parallel and dryrun_multichip on the card ->
+    {segment: launch counts}."""
+    torch.cuda.empty_cache()
+    segments = {}
+    needed = ("player_move", "render_portal_fused")
+    _, segments["parallel_dp1_nccl"] = parallel_world("parallel_dp1_nccl", 1)
+    _, segments["parallel_dp2_gloo"] = parallel_world("parallel_dp2_gloo", 2, "gloo")
+    segments["parallel_bank5_sharded"] = bank5_sharded_segment("parallel_bank5_sharded")
+    for seg, c in segments.items():
+        for name in needed:
+            require(c.get(name, 0) > 0, f"{seg}: {name} did not run")
+    return segments
+
+
 def main():
+    faulthandler.enable()  # a crash in a kernel or a collective prints the Python stack
     t0 = time.perf_counter()
     phase_device()
     phase_build()
@@ -2228,6 +2351,7 @@ def main():
     phase_goldens_hires()
     segments = phase_main(results)
     segments.update(phase_entry_points())
+    segments.update(phase_parallel())
     tally(results, segments)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "ms_b2b", "plain_ms", "bound_ms", "bound_by", "library_ms",

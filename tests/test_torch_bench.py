@@ -157,17 +157,20 @@ def test_leg_verdict(counts, per, ok):
     assert (res["mismatch_px"], res["mismatch_cov"]) == (px, cov)
 
 
-@pytest.mark.parametrize("gpx,ok", [(23, True), (24, False)], ids=["at", "over"])
+@pytest.mark.parametrize("gpx,ok", [(bench.TEXSTRESS8_POSE_CEILING, True),
+                                    (bench.TEXSTRESS8_POSE_CEILING + 1, False)],
+                         ids=["at", "over"])
 def test_leg_golden_ceiling(gpx, ok):
-    """A leg's own golden ceiling (the texstress8 leg's, 23 px per pose)
+    """A leg's own golden ceiling (the texstress8 leg's, 2 px per pose)
     replaces 16 for the golden's px only."""
+    ceiling = bench.TEXSTRESS8_POSE_CEILING
     ref_idx, ref_cov = np.zeros((2, 8, 8), np.uint8), np.zeros((2, 8, 8), bool)
     idx = ref_idx.copy().reshape(2, -1)
     idx[1, :gpx] = 1
     idx = idx.reshape(2, 8, 8)
     res = bench._leg({"portal": (idx, ref_cov), "portal_jnp": (idx, ref_cov)}, ref_idx,
-                     ref_cov, "pose", golden_ceiling=23)
-    assert res["pass"] is ok and res["golden_px"] == gpx and res["golden_ceiling"] == 23
+                     ref_cov, "pose", golden_ceiling=ceiling)
+    assert res["pass"] is ok and res["golden_px"] == gpx and res["golden_ceiling"] == ceiling
 
 
 # -- the timed ticks -------------------------------------------------------------

@@ -787,3 +787,135 @@ def test_bench_replays_equal_eager_ticks_on_card(cuda_device, which):
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert int(timing.state[-1]) > 0 and timing.launches["player_move"] >= 3
+
+
+@pytest.mark.cuda
+def test_captured_tick_keeps_what_its_tick_reads(cuda_device):
+    """On the card: a captured bank tick whose bank the caller dropped
+    replays bitwise its eager tick after a second bank was built (the
+    graph keeps its tick, and so the bank's scenes it reads; before it
+    did, the second bank took the freed memory and the replay read out of
+    bounds). In a process of its own: a graph reading freed memory may
+    crash it."""
+    code = (
+        "import torch\n"
+        "from tpu_doom_torch.bench import bank_actions, bank_tick\n"
+        "from tpu_doom_torch.tools.banks import make_bank\n"
+        "from tpu_doom_torch.tools.fixtures import capture_bank_tick\n"
+        f"specs = {CONFIG5!r}\n"
+        "def captured():\n"
+        "    bank = make_bank(specs, width=64, height=40)\n"
+        "    L, E = bank.num_levels, 4\n"
+        "    s, a = bank.reset(E), torch.ones((L, E), dtype=torch.bool, device='cuda')\n"
+        "    acts = bank_actions(L, E)\n"
+        "    graph = capture_bank_tick(bank, s, a, acts, 64, 40)\n"
+        "    with torch.no_grad():\n"
+        "        return graph, bank_tick(bank, 64, 40)((s, a), acts)\n"
+        "graph, ((s, a), frames) = captured()\n"
+        "other = make_bank(specs[::-1], width=64, height=40)\n"
+        "graph.replay()\n"
+        "torch.cuda.synchronize()\n"
+        "print('same', torch.equal(graph.outs[0], frames)\n"
+        "      and torch.equal(graph.state_buf[1], a)\n"
+        "      and all(torch.equal(x, y) for x, y in zip(graph.state_buf[0], s)))\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0 and "same True" in out.stdout, out.stdout + out.stderr[-3000:]
+
+
+@pytest.mark.cuda
+def test_cos_sin_bitwise_on_card_and_cpu(cuda_device):
+    """On the card: the camera's trig (`_numerics.cos_sin`, float64
+    rounded once to float32) gives the CPU's bits over a sweep of
+    angles: every f32 in [-4 pi, 4 pi] at a stride, the verify poses'
+    yaws and pitches, and the edges."""
+    from tpu_doom_torch._numerics import cos_sin
+    from tpu_doom_torch.bench import _golden
+
+    sweep = torch.linspace(-4 * np.pi, 4 * np.pi, 1_000_003, dtype=torch.float32)
+    ref = _golden("verify_texstress_ref.npz")
+    x = torch.cat([sweep, torch.as_tensor(ref["yaw"]).flatten(),
+                   torch.as_tensor(ref["pitch"]).flatten(),
+                   torch.tensor([0.0, -0.0, 1e-8, np.pi / 2, np.pi, 1e4, -1e4])])
+    for got, want in zip(cos_sin(x.to(cuda_device)), cos_sin(x)):
+        assert got.dtype == torch.float32 and torch.equal(got.cpu(), want)
+
+
+def _sharded_dp1_ticks():
+    """A rank of a world of one NCCL rank: dryrun_multichip's main-leg
+    tick (with its mean_metric) and bank tick (an exit migrating through
+    the bank's all-gather) under a (1, 1) mesh at 64x40, captured and
+    replayed twice against two eager ticks -> {leg: bitwise equal, leg
+    + "_moved": whether an env migrated}."""
+    from tpu_doom_torch.entry import dryrun_bank, entry_sim, spread_yaw
+    from tpu_doom_torch.graphs import CapturedTick
+    from tpu_doom_torch.parallel import make_mesh, mean_metric
+    from tpu_doom_torch.parallel.mesh import mesh_device
+    from tpu_doom_torch.render import render_dispatch
+    from tpu_doom_torch.sim.state import Actions, null_actions
+    from tpu_doom_torch.sim.step import step as sim_step
+
+    mesh = make_mesh(1, 1)
+    dev = mesh_device(mesh)
+    sim = entry_sim(dev, 64, 40, 2, crossings=8)
+    pscene = sim.portal_scene()
+
+    def main_tick(s, a):
+        s = sim_step(sim.scene, sim.config, s, a)
+        frames, cov = render_dispatch(sim.scene, pscene, sim.config, s, 64, 40)
+        return s, frames, mean_metric(cov, mesh)
+
+    bank = dryrun_bank(64, 40, dev, mesh)
+    bstate = spread_yaw(bank.reset(4))
+    pos = bstate.pos.clone()
+    pos[0, 0] = torch.tensor([-2.56, 0.68, -14.7])  # E1M1's exit switch, unturned
+    bstate = bstate._replace(pos=pos)
+    active = torch.tensor([[True] * 4, [False, False, True, True]], device=dev)
+    bacts = Actions(*(x.reshape((2, 4) + x.shape[1:]) for x in null_actions(8, dev)))
+    push = bacts.push.clone()
+    push[0, 0] = True
+    bacts = bacts._replace(push=push)
+
+    def bank_tick(carry, a):
+        s, act = carry
+        s, act, moved = bank.step_with_exits(s, act, a)
+        return (s, act), bank.render(s, 64, 40)[0], moved
+
+    def leaves(x):
+        return [x] if isinstance(x, torch.Tensor) else [t for y in x for t in leaves(y)]
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return (type(x)(*map(clone, x)) if hasattr(x, "_fields") else tuple(map(clone, x)))
+
+    out = {}
+    for leg, tick, start, acts in (
+            ("main", main_tick, spread_yaw(sim.reset(2)), sim.null_actions(2)),
+            ("bank", bank_tick, (bstate, active), bacts)):
+        graph = CapturedTick(tick, clone(start), acts)
+        same, moved_any = True, False
+        for _ in range(2):
+            with torch.no_grad():
+                start, *outs = tick(start, acts)
+            graph.replay()
+            want, got = leaves((start, outs)), leaves((graph.state_buf, graph.outs))
+            same = same and len(want) == len(got) and all(
+                torch.equal(a, b) for a, b in zip(want, got))
+            moved_any = moved_any or (leg == "bank" and bool(outs[1].any()))
+        out[leg], out[leg + "_moved"] = same, moved_any
+    return out
+
+
+@pytest.mark.cuda
+def test_sharded_tick_replays_equal_eager_ticks_at_dp1(cuda_device):
+    """On the card, in a world of one NCCL rank: the dry run's main-leg
+    and bank ticks under a (1, 1) mesh, captured with their collectives
+    (mean_metric's all-reduce, the exit migration's all-gather) and
+    replayed, bitwise their eager ticks; an exit migrates."""
+    from tpu_doom_torch.parallel import launch
+
+    (out,) = launch(1, _sharded_dp1_ticks)
+    assert out == {"main": True, "main_moved": False, "bank": True, "bank_moved": True}

@@ -7,7 +7,10 @@ of JAX:
 (b) both packages' default configs are equal field by field;
 (c) importing every module of the port, and chip_smoke.py, loads neither
     `jax` nor any module of `tpu_doom`;
-(d) no import statement of the port's files names `jax` or `tpu_doom`.
+(d) no import statement of the port's files names `jax` or `tpu_doom`;
+(f) no module of the port imports a root script (chip_smoke.py), and
+    tpu_doom_torch/tools/peelbench.py finds its fixtures from another
+    directory.
 """
 
 import ast
@@ -152,3 +155,47 @@ def test_port_sources_import_no_jax():
             for m in mods:
                 top = m.split(".")[0]
                 assert top not in ("jax", "jaxlib", "tpu_doom"), (path, node.lineno, m)
+
+
+def _package_imports():
+    """(path, line, top-level module) of every absolute import in the
+    port's package."""
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "tpu_doom_torch")):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, n)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    mods = [node.module or ""]
+                else:
+                    continue
+                for m in mods:
+                    yield path, node.lineno, m.split(".")[0]
+
+
+def test_package_imports_no_root_script():
+    """(f) No module of the port imports chip_smoke.py (or any root
+    script): the fixtures it shares live in tpu_doom_torch.tools.fixtures."""
+    bad = [x for x in _package_imports() if x[2] in ("chip_smoke", "bench", "tools")]
+    assert not bad, bad
+
+
+def test_peelbench_fixtures_load_outside_the_checkout(tmp_path):
+    """(f) tpu_doom_torch/tools/peelbench.py run from another directory
+    finds its checkout and builds both of its shapes (on the CPU here)."""
+    script = os.path.join(ROOT, "tpu_doom_torch", "tools", "peelbench.py")
+    code = ("import runpy\n"
+            f"m = runpy.run_path({script!r})\n"
+            "import sys; sys.path.insert(0, m['CHECKOUT'])\n"
+            "for name, (sim, s) in m['states']('cpu').items():\n"
+            "    print(name, tuple(s.pos.shape), sim.config.width, sim.config.height)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["verify (8, 3) 320 200", "maze (128, 3) 320 200"]

@@ -61,7 +61,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import action_seq, capture_bank_tick, make_sim  # noqa: E402
+from tpu_doom_torch.tools.fixtures import action_seq, capture_bank_tick, make_sim  # noqa: E402
 from tpu_doom_torch.bench import bank_actions, bank_tick, bench_actions  # noqa: E402
 from tpu_doom_torch.tools.banks import BANK5, BANK8, make_bank  # noqa: E402
 from tpu_doom_torch.render import portal as P  # noqa: E402

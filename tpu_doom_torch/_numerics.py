@@ -13,6 +13,9 @@
   reciprocal times the scalar everywhere: two roundings where JAX and
   the kernels round once. `div` and `rdiv` divide by, and divide a
   scalar by, a tensor with one rounding.
+* CUDA's f32 cos/sin and the CPU's differ by an ulp on some angles.
+  `cos_sin` computes both in float64 and rounds once to float32, which
+  gives the same bits on either device (the camera basis uses it).
 """
 
 from __future__ import annotations
@@ -65,3 +68,10 @@ def rdiv(s: float, x: torch.Tensor) -> torch.Tensor:
     """s / x rounded once, as JAX divides a weak-typed scalar by an
     array (PyTorch's `s / x` is `x.reciprocal() * s`)."""
     return _scalar(s, x.dtype, x.device) / x
+
+
+def cos_sin(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos x, sin x) of an f32 tensor, computed in float64 and rounded
+    once to float32: the same bits on the card and on the CPU."""
+    d = x.to(torch.float64)
+    return torch.cos(d).to(torch.float32), torch.sin(d).to(torch.float32)

@@ -162,14 +162,21 @@ class CapturedTick:
     replay. The state is a SimState or any tuple of tensors and SimStates,
     such as a level bank's (state, active mask): every tensor of it is
     written back. The tick keeps both buffers (`state_buf`,
-    `actions_buf`): the graph reads their memory at every replay. An eager
-    warm-up call under `device_decisions()` comes first; a capture that
-    fails raises."""
+    `actions_buf`) and `tick` itself, with whatever its closure holds
+    (a bank's stacked scenes): the graph reads their memory at every
+    replay, and memory freed under a live graph is handed to the next
+    allocation (a second bank's scenes read as the first's). An eager
+    warm-up call under `device_decisions()` comes first (it also sets up
+    the communicators of any collective in the tick); a capture that
+    fails raises. The capture is thread-local: another thread of the
+    process, such as NCCL's watchdog querying the warm-up's collectives,
+    may call the runtime meanwhile, while a host read in the tick itself
+    still fails the capture."""
 
     def __init__(self, tick, state_buf, actions_buf: Actions, pool=None):
         from .ops import add_launches, host_launch_counts
 
-        self.state_buf, self.actions_buf = state_buf, actions_buf
+        self.tick, self.state_buf, self.actions_buf = tick, state_buf, actions_buf
 
         with device_decisions():
             tick(state_buf, actions_buf)
@@ -178,7 +185,7 @@ class CapturedTick:
         before = host_launch_counts()
         _captures.append(cap)
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                 new, *outs = tick(state_buf, actions_buf)
                 torch._foreach_copy_(_leaves(state_buf), _leaves(new))
         finally:

@@ -20,6 +20,14 @@ as the JAX package does. `step_with_exits` moves envs whose exit fired
 to the next level's group on the device, with no host read, so that a
 bank tick (it, then `render`) can be captured as one CUDA graph
 (`graphs.CapturedTick`).
+
+Under a process mesh (`parallel.make_mesh`) each rank holds a 'dp' block
+of the env axis. The migration fills the first free slots of a whole
+group, which may lie on another rank, so the bank all-gathers the
+(L, E) exit and occupancy masks over 'dp' (`parallel.gather_envs`, 2 L E
+bytes), runs the same migration on the global masks on every rank and
+keeps its own block: bitwise the unsharded bank by construction. (The
+JAX package gets the same from XLA's partitioner.)
 """
 
 from __future__ import annotations
@@ -170,6 +178,30 @@ def stack_portal_scenes(padded_levels: Sequence[LevelArrays], device="cuda") -> 
     return out
 
 
+def migrate_slots(exited: torch.Tensor, active: torch.Tensor):
+    """The bank's slot migration on (L, E) bool masks -> (active after,
+    moved, spawn), each (L, E). Exits from level g-1 fill the first free
+    slots of group g in env order (migration moves no data, only slot
+    occupancy); an exit that finds its target group full stays, to reset
+    in place in its own level (the capacity fallback). The groups go in
+    order: level L-1's free slots depend on what g = 0 vacated."""
+    L = exited.shape[0]
+    act = list(active.unbind(0))
+    moved = [torch.zeros_like(exited[0])] * L
+    spawn = [torch.zeros_like(exited[0])] * L
+    for g in range(L if L > 1 else 0):
+        src = g - 1 if g > 0 else L - 1  # exits from level g-1 land in g
+        incoming = exited[src]
+        free = ~act[g]
+        recv = free & (torch.cumsum(free, 0) - 1 < incoming.sum())
+        departed = incoming & (torch.cumsum(incoming, 0) - 1 < recv.sum())
+        moved[src] = departed
+        act[g] = act[g] | recv
+        act[src] = act[src] & ~departed
+        spawn[g] = recv
+    return torch.stack(act), torch.stack(moved), torch.stack(spawn)
+
+
 def _stack(trees):
     """Stack NamedTuples of tensors field by field on a new leading axis."""
     return type(trees[0])(*(torch.stack(xs) for xs in zip(*trees)))
@@ -180,7 +212,7 @@ class LevelBank:
     on `device`: the card by default; `device="cpu"` runs the kernels'
     plain versions."""
 
-    def __init__(self, levels: Sequence[LevelArrays], cfg, device="cuda"):
+    def __init__(self, levels: Sequence[LevelArrays], cfg, device="cuda", mesh=None):
         assert levels, "empty level bank"
         check_raster_backend(cfg.raster_backend)
         check_collision_config(cfg.player)
@@ -193,6 +225,7 @@ class LevelBank:
         self.palettes = np.stack([lv.palette for lv in padded])
         self.pscenes = (stack_portal_scenes(padded, self.device)
                         if cfg.raster_backend.startswith("portal") else None)
+        self.mesh = mesh
 
     @property
     def num_levels(self) -> int:
@@ -234,38 +267,31 @@ class LevelBank:
 
         Envs occupy (L, E) slots gated by the bool mask `active`. An env
         whose exit fires respawns at the NEXT level's start in a free slot
-        of that level's group: exits from level g-1 fill the first free
-        slots of group g (migration moves no data, only slot occupancy).
-        If the target group is full the env resets in place in its own
-        level (the capacity fallback). Every exit flag is cleared. Returns
-        (state, active, moved): moved[l] = envs that left level l this
-        tick. Counts and ranks stay tensors: nothing is read back."""
-        L = self.num_levels
+        of that level's group (`migrate_slots`). Every exit flag is
+        cleared. Returns (state, active, moved): moved[l] = envs that left
+        level l this tick. Counts and ranks stay tensors: nothing is read
+        back. Under a mesh, the (L, E) arguments are this rank's 'dp'
+        block: the masks are gathered, migrated whole and cut back."""
         state = self.step(state, actions, scenes=scenes)
         init = self.initial_states(state.pos.shape[1])
         exited = (state.exit_triggered > 0) & active  # (L, E)
-        act = list(active.unbind(0))
-        moved = [torch.zeros_like(exited[0])] * L
-        spawn = [torch.zeros_like(exited[0])] * L
-        for g in range(L if L > 1 else 0):
-            src = g - 1 if g > 0 else L - 1  # exits from level g-1 land in g
-            incoming = exited[src]
-            free = ~act[g]
-            recv = free & (torch.cumsum(free, 0) - 1 < incoming.sum())
-            departed = incoming & (torch.cumsum(incoming, 0) - 1 < recv.sum())
-            moved[src] = departed
-            act[g] = act[g] | recv
-            act[src] = act[src] & ~departed
-            spawn[g] = recv
+        if self.mesh is None:
+            act, moved, spawn = migrate_slots(exited, active)
+        else:
+            from ..parallel.mesh import block, gather_envs
+
+            masks = gather_envs(torch.stack([exited, active]), self.mesh, axis=2)
+            mine = block(masks.shape[2], self.mesh, "dp")
+            act, moved, spawn = (m[:, mine] for m in migrate_slots(masks[0], masks[1]))
         # Receiving slots take their level's initial state; every exited
         # slot resets in place (capacity-blocked envs restart their level,
         # departed slots, now inactive, are left clean).
-        fresh = torch.stack(spawn) | exited
+        fresh = spawn | exited
         state = SimState(*(
             torch.where(fresh.view(fresh.shape + (1,) * (s.dim() - 2)), i, s)
             for i, s in zip(init, state)))
         state = state._replace(exit_triggered=torch.zeros_like(state.exit_triggered))
-        return state, torch.stack(act), torch.stack(moved)
+        return state, act, moved
 
     @torch.no_grad()
     def render(self, state: SimState, width=None, height=None, scenes: Scene = None,

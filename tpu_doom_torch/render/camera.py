@@ -8,7 +8,7 @@ import math
 import numpy as np
 import torch
 
-from .._numerics import f32
+from .._numerics import cos_sin, f32
 
 
 def tan_f32(x: float) -> float:
@@ -32,9 +32,10 @@ def perspective(fovy_rad, aspect, near, far, device) -> torch.Tensor:
 
 def rotation_yaw_pitch(yaw, pitch):
     """R = R_y(yaw) @ R_x(pitch) as (B, 3, 3). Every entry is one product
-    (the other terms of the 3x3 product are exact zeros)."""
-    cy, sy = torch.cos(yaw), torch.sin(yaw)
-    cx, sx = torch.cos(pitch), torch.sin(pitch)
+    (the other terms of the 3x3 product are exact zeros). The trig is
+    rounded once from float64 (`_numerics.cos_sin`)."""
+    cy, sy = cos_sin(yaw)
+    cx, sx = cos_sin(pitch)
     z = torch.zeros_like(cy)
     return torch.stack([
         torch.stack([cy, sy * sx, sy * cx], dim=-1),

@@ -39,7 +39,7 @@ import math
 import numpy as np
 import torch
 
-from .._numerics import div, f32, to_i32
+from .._numerics import cos_sin, div, f32, to_i32
 from ..geom.portal import PortalTable
 from ..ops.raster import (
     classify_alpha,
@@ -388,10 +388,12 @@ def _projection(cfg, width, height):
 
 
 def _shear_terms(pitch, p11):
-    """(sin, cos, shear_ndc) of the pitch, gated by PITCH_EPS."""
+    """(sin, cos, shear_ndc) of the pitch, gated by PITCH_EPS; the trig
+    rounded once from float64 (`_numerics.cos_sin`)."""
     on = torch.abs(pitch) > PITCH_EPS
-    sp = torch.where(on, torch.sin(pitch), 0.0)
-    cp = torch.where(on, torch.cos(pitch), 1.0)
+    c, s = cos_sin(pitch)
+    sp = torch.where(on, s, 0.0)
+    cp = torch.where(on, c, 1.0)
     return sp, cp, p11 * sp / cp
 
 
@@ -471,7 +473,7 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
     dev = pos.device
     SD = pt["has_back"].shape[0]
 
-    cy_, sy_ = torch.cos(yaw), torch.sin(yaw)
+    cy_, sy_ = cos_sin(yaw)
     sp_, cp_, shear_ndc = _shear_terms(pitch, p11)
     cam = pos + pcfg.camera_height * torch.stack([sy_ * sp_, cp_, cy_ * sp_], dim=1)
     row_shear = 0.5 * H * shear_ndc

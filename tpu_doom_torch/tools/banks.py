@@ -45,10 +45,11 @@ def bank_config(**kw):
     return GameConfig(**base)
 
 
-def make_bank(specs, device="cuda", **kw):
-    """A LevelBank of `specs` with `bank_config(**kw)`."""
+def make_bank(specs, device="cuda", mesh=None, **kw):
+    """A LevelBank of `specs` with `bank_config(**kw)`, under `mesh` (a
+    `parallel.make_mesh`) if one is given."""
     from ..models import LevelBank
 
     cfg = bank_config(**kw)
-    return LevelBank(bank_levels(specs, cfg), cfg, device)
+    return LevelBank(bank_levels(specs, cfg), cfg, device, mesh=mesh)
 

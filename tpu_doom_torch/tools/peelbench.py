@@ -5,14 +5,14 @@
 
 (DIR defaults to build/, which git ignores.)
 
-Times the kernels of the checkout in the current directory, so that two
-revisions can be compared in one run on one card: run it from the
-root of each (`cd other && python3 /path/to/peelbench.py --label other`).
-The shapes, both 320x200 at K = depth_layers = 3, from chip_smoke.py's
-own input makers in that checkout:
+Times the kernels of the checkout that holds this script, from any
+directory, so that two revisions can be compared in one run on one card:
+run each one's script (`python3 other/tpu_doom_torch/tools/peelbench.py
+--label other`). The shapes, both 320x200 at K = depth_layers = 3, from
+that checkout's `tpu_doom_torch.tools.fixtures`:
   verify  the 8 verify poses of :test: (tests/golden/verify_ref.npz);
-  maze    a maze's triangles: the 128 pitched envs of chip_smoke.py's
-          fallback_sim on :texstress: at reset.
+  maze    a maze's triangles: the 128 pitched envs of `fallback_sim` on
+          :texstress: at reset.
 For each kernel and shape: the median ms of single launches and of runs
 of 5 launches back to back (CUDA events), and a SHA-256 of the output's
 bytes, which two revisions' kernels give alike when they agree bit for
@@ -34,14 +34,15 @@ import numpy as np
 import torch
 
 W, H = 320, 200
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def states():
-    """shape name -> (sim, state), from the checkout's chip_smoke.py."""
-    from chip_smoke import fallback_sim, make_sim, verify_ref, verify_state
+def states(device="cuda"):
+    """shape name -> (sim, state), from the checkout's fixtures."""
+    from tpu_doom_torch.tools.fixtures import fallback_sim, make_sim, verify_ref, verify_state
 
-    vsim = make_sim(batch_size=8, portal_crossings=12, raster_backend="auto")
-    sim, state, _ = fallback_sim(wad_file=":texstress:")
+    vsim = make_sim(device, batch_size=8, portal_crossings=12, raster_backend="auto")
+    sim, state, _ = fallback_sim(device=device, wad_file=":texstress:")
     n = state.pos.shape[0] // 2  # fallback_sim pitches the first half
     return {"verify": (vsim, verify_state(vsim, verify_ref())),
             "maze": (sim, type(state)(*(x[:n] for x in state)))}
@@ -86,7 +87,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("peelbench: needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.getcwd())  # the checkout to time
+    sys.path.insert(0, CHECKOUT)  # the checkout to time
     from tpu_doom_torch.ops import depth_peel, pack_triangle_rows, peel_resolve
     from tpu_doom_torch.render import raster as R
     from tpu_doom_torch.tools import device_label
