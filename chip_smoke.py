@@ -13,7 +13,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
      back to back, `ms_b2b`), beside its bound (bytes over 3.35 TB/s or
      f32 operations over 67 TFLOP/s, whichever is larger; B2's and B8's
      bytes are those these inputs need, from the plain version's
-     winners; B1's operations the sweeps these inputs need, up to each
+     winners, their scattered table reads (texel, hole byte, colormap)
+     as distinct 32-byte sectors, the unit DRAM moves; B4's the sectors
+     of the rows it selects; B5's each distinct source block once;
+     B1's operations the sweeps these inputs need, up to each
      env's first clip substep that is not blocked) and, where one PyTorch
      call computes the same function, that call's time (single and back
      to back). On :test: (B1: 256
@@ -161,6 +164,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
        frames; env*frames/s and device ms per replay of both, in turns,
        and the all-gather's device us per call (numbers to record).
      A rank that fails, or prints no OK line, fails the run.
+  9. tools (tpu_doom_torch.tools: perfcmp, stagebudget, fallbackrate),
+     each a segment with its launch counts (perfcmp's and stagebudget's
+     summed over their runs' timed replays), then the phase's seconds:
+     tools_perfcmp: run_one at :test: 256 x 320x200 (best of 3 windows of
+       8 replays) at the defaults and with portal_compact_crossings=4;
+     tools_stagebudget: full, step, render and walk at the same point,
+       each its own captured tick; the full stage's checksum bitwise
+       bench.time_ticks' over as many ticks from reset (outside the
+       segment);
+     tools_fallbackrate: fallback_rate at its defaults (:texstress: x 64
+       envs, 32 ticks, 320x200), one line; then (outside the segment) the
+       tool's walk on the card for its first 4 ticks against the plain
+       walk on the CPU for 8 of the envs (4 that stay on the portal path
+       and 4 that overflow, where a tick has them), their states copied
+       there: overflow, records and words bitwise equal. Once at the
+       tool's defaults (B4 selects the records; no env overflows), once
+       with portal_visible_segs=208, where about half the envs overflow
+       from tick 1 on: that pass must compare both kinds.
 The last two lines: the kernels' JSON summary (launches summed over the
 main-path segments, and per segment), then the device JSON.
 Imports neither JAX nor the JAX package: the GPU machine has neither.
@@ -169,6 +190,7 @@ Imports neither JAX nor the JAX package: the GPU machine has neither.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import faulthandler
 import json
 import os
@@ -210,6 +232,9 @@ CLI_DUMP_TICKS = 21  # phase 7's dump-frames: frames after ticks 1, 11 and 21
 PARALLEL_REPLAYS = 8  # phase 8: sharded bank replays held bitwise to unsharded ones
 GATHER_CALLS = 32  # phase 8: timed calls of the bank's all-gather alone
 MEAN_METRIC_RTOL = 1e-6  # mean_metric against x.mean(): the order of the sums
+TOOL_TICKS, TOOL_REPS = 8, 3  # phase 9: replays per window, windows
+FALLBACK_CHECK_TICKS, FALLBACK_CHECK_ENVS = 4, 8  # phase 9: fallbackrate vs the plain walk
+FALLBACK_CHECK_VISIBLE_SEGS = 208  # phase 9: a budget that ~half the :texstress: envs overflow
 
 KERNELS = {
     "player_move": dict(
@@ -304,6 +329,7 @@ TOOL_KERNELS = ("onehot_lookup", "render_portal_ablated")
 # tensor cores (NVIDIA's data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+SECTOR_BYTES = 32  # the unit DRAM moves: scattered table reads count whole sectors
 # Operation counts per unit of work, floors from the kernels' sources:
 PEEL_TEST_OPS = 20    # one coverage test: five 3-term dot products
 SWEEP_TRI_OPS = 300   # one swept-sphere vs triangle test (face, 3 vertex, 3 edge)
@@ -439,19 +465,46 @@ def player_move_sweeps(rows, st8, radius, dt, substeps, enable_noclip):
     return int(runs.sum()) + rows.shape[0] * (1 + int(bool(enable_noclip)))
 
 
-def _distinct(t):
-    return int(torch.unique(t).numel())
+def _sector_bytes(addr):
+    """Bytes of the distinct 32-byte sectors that hold the byte offsets
+    `addr` of one table: DRAM moves whole sectors, so a scattered read
+    costs its sector however few of its bytes are used."""
+    return SECTOR_BYTES * int(torch.unique(addr // SECTOR_BYTES).numel())
 
 
 def _table_bytes(key, lin, crow, v1, hole, textured, tex, hole_bytes):
     """Bytes of the tables that the textured pixels read, each distinct
-    entry once: the texel at `key` (its address, per env in the per-env
-    mode), the hole byte (global table with holes) and, at pixels that are
-    no hole, the colormap entry."""
-    n = _distinct(key[textured]) * tex.element_size()
+    32-byte sector once: the texel at `key` (its index, per env in the
+    per-env mode), the hole byte (global table with holes) and, at pixels
+    that are no hole, the colormap entry."""
+    n = _sector_bytes(key[textured].long() * tex.element_size())
     if tex.dim() == 2 and hole_bytes is not None:
-        n += _distinct((lin >> 3)[textured])
-    return n + _distinct((crow * 256 + v1)[textured & ~hole])
+        n += _sector_bytes((lin >> 3)[textured])
+    return n + _sector_bytes((crow * 256 + v1)[textured & ~hole])
+
+
+def row_sector_bytes(idx, table):
+    """Bytes of the 32-byte sectors that hold the rows of `table` (B, S,
+    C) that `idx` (B, N) selects (clamped to [0, S), as B4 clamps), each
+    sector once."""
+    B, S, C = table.shape
+    row = C * table.element_size()
+    env = torch.arange(B, device=idx.device)[:, None] * S
+    start = torch.unique(idx.long().clamp(0, S - 1) + env) * row  # sorted
+    first, last = start // SECTOR_BYTES, (start + row - 1) // SECTOR_BYTES
+    shared = int((first[1:] == last[:-1]).sum())  # a sector two rows share
+    return SECTOR_BYTES * (int((last - first + 1).sum()) - shared)
+
+
+def block_source_bytes(meta, tex_full):
+    """Bytes of the distinct 8-row blocks of `tex_full` (S, 128) that B5
+    copies from, each once however many envs copy it (a block is 2 KiB,
+    whole sectors); meta (B, C, 3) [source block, slot block, count]."""
+    g, _, nblk = meta.long().unbind(-1)
+    i = torch.arange(max(int(nblk.max()), 1), device=meta.device)
+    src = g[..., None] + i
+    src = src[(i < nblk[..., None]) & (src >= 0) & (src < tex_full.shape[0] // 8)]
+    return int(torch.unique(src).numel()) * 8 * 128 * tex_full.element_size()
 
 
 def _kinds(kind):
@@ -1009,7 +1062,11 @@ def phase_kernels_texstress(results):
     C = tab.shape[2]
     lib = time_ms(lambda: torch.gather(
         tab.transpose(1, 2), 2, idx.long()[:, None, :].expand(-1, C, -1)))
-    record(results, "select_rows", err, ms, b2b, plain, nbytes(idx, tab, got),
+    # B4 reads only the rows it selects: their sectors, not the table.
+    rows_read = row_sector_bytes(idx, tab)
+    print(f"[bound] B4 reads the 32-byte sectors of the rows it selects: {rows_read} of"
+          f" the table's {nbytes(tab)} bytes")
+    record(results, "select_rows", err, ms, b2b, plain, nbytes(idx, got) + rows_read,
            library_ms=lib)
     del calls, idx, tab, got, want
 
@@ -1073,8 +1130,10 @@ def phase_kernels_texstress(results):
           f" {int(overflow.sum())} envs over the active budget; {ms:.4f} ms"
           f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(same, "B5 disagrees with its plain version")
-    copied = int(meta[..., 2].sum()) * 8 * 128 * tex_full.element_size()
-    record(results, "gather_cells", err, ms, b2b, plain, nbytes(meta, got) + copied)
+    read = block_source_bytes(meta, tex_full)
+    print(f"[bound] B5 reads {read} bytes of distinct source blocks; its envs copy"
+          f" {int(meta[..., 2].sum()) * 8 * 128 * tex_full.element_size()}")
+    record(results, "gather_cells", err, ms, b2b, plain, nbytes(meta, got) + read)
     del sl, gc, sidx, live, meta, tex_full, got, want
 
     require(args[6].dim() == 3, "B2 is not in its per-env mode on the active set")
@@ -2042,6 +2101,12 @@ def entry_point(tag, args, needed=(), **env):
     return out, counts[0]
 
 
+def add_counts(total, counts):
+    """Add one run's launch counts into `total`, kernel by kernel."""
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
 @contextlib.contextmanager
 def segment(segments, tag):
     """The launch counts set to 0 before the block and read into
@@ -2334,6 +2399,126 @@ def phase_parallel():
     return segments
 
 
+def check_rate_walk(sim, plain, label):
+    """fallbackrate's walk on the card over its first FALLBACK_CHECK_TICKS
+    ticks, each held bitwise (overflow, records, words) to the plain walk
+    on the CPU for FALLBACK_CHECK_ENVS of the envs: half that stay on the
+    portal path, half that overflow, where the tick has both. `plain` is
+    the level's (portal scene, scene) on the CPU. Returns the set of
+    overflow values compared."""
+    from tpu_doom_torch.sim.state import SimState
+    from tpu_doom_torch.tools import fallbackrate as FR
+
+    half, kinds = FALLBACK_CHECK_ENVS // 2, set()
+    for t, (state, _) in enumerate(FR.overflow_ticks(sim, FALLBACK_CHECK_TICKS,
+                                                     W_MAIN, H_MAIN)):
+        card = FR.rate_walk(sim.portal_scene(), sim.scene, sim.config, W_MAIN, H_MAIN, state)
+        order = torch.argsort(card[2].to(torch.uint8), stable=True)
+        envs = torch.cat([order[:half], order[-half:]])
+        card = [x[envs].cpu() for x in card]
+        want = FR.rate_walk(*plain, sim.config, W_MAIN, H_MAIN,
+                            SimState(*(x[envs].cpu() for x in state)))
+        same = [torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                            b.view(torch.int32) if b.is_floating_point() else b)
+                for a, b in zip(card, want)]
+        err = float((card[0] - want[0]).abs().nan_to_num(0.0).max())
+        kinds |= set(card[2].tolist())
+        print(f"[tools_fallbackrate] {label} tick {t}: envs {envs.tolist()} overflow on the"
+              f" card {card[2].int().tolist()}, plain walk on the CPU {want[2].int().tolist()};"
+              f" records, words bitwise {same[0]}, {same[1]} (records max_abs_err {err})")
+        require(all(same), f"fallbackrate {label} tick {t}: the card's walk differs from"
+                           " the plain walk's (overflow, records, words bitwise)")
+    return kinds
+
+
+def phase_perf_tools():
+    """Phase 9: the port's timing tools on the card, each a segment ->
+    {segment: launch counts}. perfcmp and stagebudget at :test: 256 x
+    320x200, best of TOOL_REPS windows of TOOL_TICKS replays; the full
+    stage's checksum held bitwise to bench.time_ticks' over as many ticks
+    from reset; fallbackrate at its defaults, then its walk on the card
+    for FALLBACK_CHECK_TICKS ticks held bitwise to the plain walk on the
+    CPU for FALLBACK_CHECK_ENVS of the envs, their states copied there
+    (`check_rate_walk`), at the defaults and under a visible-seg budget
+    that makes envs overflow."""
+    from tpu_doom_torch.bench import sim_tick, time_ticks
+    from tpu_doom_torch.render.portal import portal_scene_from_table
+    from tpu_doom_torch.sim.scene import scene_from_arrays
+    from tpu_doom_torch.tools import fallbackrate as FR
+    from tpu_doom_torch.tools import perfcmp as PC
+    from tpu_doom_torch.tools import stagebudget as SB
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    segments = {}
+    point = PC.Point(":test:", B_MAIN, W_MAIN, H_MAIN, TOOL_TICKS, TOOL_REPS)
+    where = (f"{point.wad} {point.width}x{point.height} x {point.batch} envs, best of"
+             f" {point.reps} windows of {point.ticks} replays")
+    # bench.time_ticks sets the counts to 0 before its timed windows: each
+    # run's are read after it and summed into the segment's.
+    segments["tools_perfcmp"] = counts = {}
+    sims = {}
+    for group in ("", "portal_compact_crossings=4"):
+        reset_counts()
+        fps = PC.run_one(PC.parse(group) if group else {}, "cuda", sims, point)
+        add_counts(counts, read_counts())
+        print(f"[tools_perfcmp] {group or '(default)'}: {fps:.1f} env-fps ({where})")
+        require(np.isfinite(fps) and fps > 0, f"perfcmp {group!r}: {fps} env-fps")
+    del sims
+
+    sim = PC.make_sim(PC.bench_config(point, {}), "cuda")
+    segments["tools_stagebudget"] = counts = {}
+    ms = {}
+    for name in SB.STAGES:
+        reset_counts()
+        ms[name], (_, check) = SB.run_stage(name, sim, point)
+        add_counts(counts, read_counts())
+        print(f"[tools_stagebudget] {name:>8}: {ms[name]:.4f} ms/tick (B={point.batch})"
+              f" [{point.batch * 1e3 / ms[name]:.1f} env-fps], checksum {int(check)}"
+              f" ({where})")
+        require(np.isfinite(ms[name]) and ms[name] > 0 and int(check) != 0,
+                f"stagebudget {name}: {ms[name]} ms, checksum {int(check)}")
+        if name == "full":
+            full_check = int(check)
+    print(f"[tools_stagebudget] step + render - full: "
+          f"{ms['step'] + ms['render'] - ms['full']:.4f} ms")
+    bench = time_ticks(sim_tick(sim, point.width, point.height),
+                       (sim.reset(point.batch), torch.zeros((), dtype=torch.int64,
+                                                            device=sim.device)),
+                       bench_actions(sim, point.batch), point.reps * point.ticks)
+    print(f"[tools_stagebudget] full stage checksum {full_check}; bench.time_ticks over"
+          f" the same {1 + point.reps * point.ticks} ticks from reset"
+          f" {int(bench.state[-1])} (must be equal)")
+    require(full_check == int(bench.state[-1]),
+            "stagebudget's full stage does not tick as the bench does")
+    del sim, bench
+
+    with segment(segments, "tools_fallbackrate"):
+        t0 = time.perf_counter()
+        r = FR.fallback_rate(device="cuda")
+        print(f"[tools_fallbackrate] {json.dumps({k: r[k] for k in FR.JSON_KEYS})};"
+              f" overflowing envs per tick {r['overflow_per_tick']};"
+              f" {time.perf_counter() - t0:.1f} s")
+    sim = FR.rate_sim(r["wad"], r["envs"], W_MAIN, H_MAIN, "cuda")
+    plain = (portal_scene_from_table(sim.arrays.portal, sim.arrays, "cpu"),
+             scene_from_arrays(sim.arrays, "cpu")[0])
+    check_rate_walk(sim, plain, "defaults")
+    sim.config = dataclasses.replace(sim.config,
+                                     portal_visible_segs=FALLBACK_CHECK_VISIBLE_SEGS)
+    kinds = check_rate_walk(sim, plain, f"portal_visible_segs={FALLBACK_CHECK_VISIBLE_SEGS}")
+    require(kinds == {True, False},
+            f"fallbackrate: the budget pass compared overflow values {kinds}, not both")
+    del sim, plain
+    needed = {"tools_perfcmp": ("player_move", "render_portal_fused"),
+              "tools_stagebudget": ("player_move", "render_portal_fused"),
+              "tools_fallbackrate": ("player_move", "select_rows")}
+    for seg, names in needed.items():
+        for name in names:
+            require(segments[seg].get(name, 0) > 0, f"{seg}: {name} did not run")
+    print(f"[tools] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return segments
+
+
 def main():
     faulthandler.enable()  # a crash in a kernel or a collective prints the Python stack
     t0 = time.perf_counter()
@@ -2352,6 +2537,7 @@ def main():
     segments = phase_main(results)
     segments.update(phase_entry_points())
     segments.update(phase_parallel())
+    segments.update(phase_perf_tools())
     tally(results, segments)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "ms_b2b", "plain_ms", "bound_ms", "bound_by", "library_ms",

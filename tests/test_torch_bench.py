@@ -202,6 +202,23 @@ def test_time_ticks_equals_eager_ticks():
                                                            "render_portal_fused"}
 
 
+def test_time_ticks_windows_run_on_from_one_state():
+    """reps windows of n ticks end where one window of reps * n ticks
+    does, bitwise."""
+    sim = _sim()
+    acts = bench.bench_actions(sim, 2)
+    tick = bench.sim_tick(sim, W, H)
+
+    def run(ticks, reps):
+        carry = (sim.reset(2), torch.zeros((), dtype=torch.int64))
+        return bench.time_ticks(tick, carry, acts, ticks, warmup=1, reps=reps)
+
+    windows, whole = run(1, 3), run(3, 1)
+    assert all(torch.equal(a, b) for a, b in zip(windows.state[0], whole.state[0]))
+    assert int(windows.state[1]) == int(whole.state[1]) > 0
+    assert windows.seconds > 0
+
+
 def _bank():
     from tpu_doom_torch.tools.banks import BANK5, make_bank
 

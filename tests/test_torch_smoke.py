@@ -4,9 +4,16 @@ count made pixel by pixel on the CPU.
 The bound of a kernel whose reads depend on the data counts what these
 inputs need: `portal_bytes` (B2, both table modes) and `shade_bytes`
 (B8) count it with whole-tensor operations from the plain version's
-walk. Here the winners come another way (the first prefix of the records
-that covers a pixel) and each env, column and pixel is counted in a
-Python loop. Tolerance: exact (integers).
+walk, each table read (texel, hole byte, colormap entry) as the distinct
+32-byte sector that holds it, the unit DRAM moves. Here the winners come
+another way (the first prefix of the records that covers a pixel) and
+each env, column and pixel is counted in a Python loop. Tolerance: exact
+(integers).
+
+B4's bound reads the sectors of the rows it selects
+(`row_sector_bytes`), B5's each source block once
+(`block_source_bytes`), each held to a count made row by row and block
+by block.
 
 B3's and B9's bounds count one coverage test per covering (pixel,
 triangle) pair (`peel_pairs`), held to a count made triangle by triangle.
@@ -60,16 +67,21 @@ def _state(wad, **extra):
     return sim, s
 
 
+SECTOR = 32  # bytes DRAM moves at once
+
+
 def _table_entry(tex, hole_bytes, b, lin):
-    """(texel key, texel 0..255, hole byte index or None, is hole)."""
+    """(texel's 32-byte sector, texel 0..255, hole byte's sector or None,
+    is hole)."""
     if tex.dim() == 3:
         v = int(tex[b].reshape(-1)[lin])
-        return (b, lin), min(v, 255), None, v == 256
+        offset = (b * tex[b].numel() + lin) * tex.element_size()
+        return offset // SECTOR, min(v, 255), None, v == 256
     v1 = int(tex.reshape(-1)[lin]) + 128
     if hole_bytes is None:
-        return lin, v1, None, False
+        return lin // SECTOR, v1, None, False
     hbyte = int(hole_bytes.reshape(-1)[lin >> 3]) + 128
-    return lin, v1, lin >> 3, (hbyte >> (lin & 7)) & 1 == 1
+    return lin // SECTOR, v1, (lin >> 3) // SECTOR, (hbyte >> (lin & 7)) & 1 == 1
 
 
 def _portal_bytes_by_pixel(args, kw):
@@ -117,9 +129,9 @@ def _portal_bytes_by_pixel(args, kw):
                 if hbyte is not None:
                     holes.add(hbyte)
                 if not hole:
-                    cmap.add((int(crow[b, h, c]), v1))
+                    cmap.add((int(crow[b, h, c]) * 256 + v1) // SECTOR)
             total += 8 * flat_column
-    return total + len(texels) * tex.element_size() + len(holes) + len(cmap)
+    return total + SECTOR * (len(texels) + len(holes) + len(cmap))
 
 
 @pytest.mark.parametrize("wad, extra, per_env", [
@@ -169,9 +181,48 @@ def test_shade_bytes_counts_each_pixel():
             texels.add(key)
             holes.add(hbyte)
             if not hole:
-                cmap.add((int(crow[b, p]), v1))
-    want = total + len(texels) + len(holes) + len(cmap)
+                cmap.add((int(crow[b, p]) * 256 + v1) // SECTOR)
+    want = total + SECTOR * (len(texels) + len(holes) + len(cmap))
     assert cs.shade_bytes(ch, sargs, shear) == want
+
+
+@pytest.mark.parametrize("C", [74, 8, 3])
+def test_row_sector_bytes_counts_each_row(C):
+    """B4's table reads: the 32-byte sectors that hold the selected rows
+    (indices clamped to [0, S), as B4 clamps), each once, against a count
+    made row by row; rows of 296, 32 and 12 bytes, so rows share sectors
+    or fill them exactly."""
+    import numpy as np
+
+    cs = _chip_smoke()
+    B, S, N = 3, 40, 50
+    idx = torch.as_tensor(np.random.default_rng(C).integers(-2, S + 2, (B, N)),
+                          dtype=torch.int32)
+    sectors = set()
+    for b in range(B):
+        for r in {min(max(int(i), 0), S - 1) for i in idx[b]}:
+            start = (b * S + r) * C * 4
+            sectors.update(range(start // SECTOR, (start + C * 4 - 1) // SECTOR + 1))
+    got = cs.row_sector_bytes(idx, torch.zeros((B, S, C)))
+    assert got == SECTOR * len(sectors) < B * S * C * 4 + SECTOR
+
+
+def test_block_source_bytes_counts_each_block():
+    """B5's table reads: each 8-row source block that some env copies,
+    once, against a count made block by block; blocks past the table
+    (and counts of 0) read nothing."""
+    import numpy as np
+
+    cs = _chip_smoke()
+    rng = np.random.default_rng(0)
+    S, B, C = 80, 4, 6
+    meta = np.stack([rng.integers(-1, S // 8 + 2, (B, C)), rng.integers(0, 9, (B, C)),
+                     rng.integers(0, 4, (B, C))], axis=-1).astype(np.int32)
+    blocks = {g + i for g, _, n in meta.reshape(-1, 3) for i in range(n)
+              if 0 <= g + i < S // 8}
+    got = cs.block_source_bytes(torch.as_tensor(meta), torch.zeros((S, 128), dtype=torch.int16))
+    assert got == len(blocks) * 8 * 128 * 2
+    assert 0 < len(blocks) < int(meta[..., 2].sum())  # envs share blocks
 
 
 # ---------------------------------------------------------------------------

@@ -172,10 +172,10 @@ def bank_tick(bank, width: int, height: int):
 
 
 class Timing(NamedTuple):
-    seconds: float  # the timed window, host clock, ending in a synchronize
+    seconds: float  # the fastest timed window, host clock, ending in a synchronize
     setup_seconds: float  # build, warm-up and capture before it
     state: tuple  # the final (..., checksum)
-    launches: dict  # kernel launches of the timed window
+    launches: dict  # kernel launches of the timed windows
 
 
 def _sync(device: torch.device) -> None:
@@ -185,12 +185,14 @@ def _sync(device: torch.device) -> None:
 
 @torch.no_grad()
 def time_ticks(tick, state: tuple, acts: Actions, ticks: int,
-               warmup: int = WARMUP_TICKS) -> Timing:
-    """Time `ticks` ticks of `tick(state, acts) -> ((state,),)`, whose
-    state ends in its 0-d checksum. On the card: the tick captured as one
-    CUDA graph (an eager warm-up tick first), `warmup` replays, then the
-    timed replays; on the CPU the same ticks eagerly. The launch counts
-    are set to 0 just before the timed window and read just after."""
+               warmup: int = WARMUP_TICKS, reps: int = 1) -> Timing:
+    """Time `reps` windows of `ticks` ticks of `tick(state, acts) ->
+    ((state,),)`, whose state ends in its 0-d checksum, run on from one
+    state; `seconds` is the fastest window's. On the card: the tick
+    captured as one CUDA graph (an eager warm-up tick first), `warmup`
+    replays, then the timed replays; on the CPU the same ticks eagerly.
+    The launch counts are set to 0 just before the first timed window and
+    read just after the last."""
     from .graphs import CapturedTick
     from .ops import launch_counts, reset_launch_counts
 
@@ -209,11 +211,13 @@ def time_ticks(tick, state: tuple, acts: Actions, ticks: int,
     _sync(dev)
     setup = time.perf_counter() - t0
     reset_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(ticks):
-        advance()
-    _sync(dev)
-    seconds = time.perf_counter() - t0
+    seconds = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            advance()
+        _sync(dev)
+        seconds = min(seconds, time.perf_counter() - t0)
     final = graph.state_buf if dev.type == "cuda" else carry[0]
     return Timing(seconds, setup, final, launch_counts())
 
