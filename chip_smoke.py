@@ -43,6 +43,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
      points' shapes at 64x40 (`*_entry`): B1 and B2 on entry()'s 2 envs
      after 4 walking ticks, B3 on the CLI's one env under its default
      backend ("auto") after the 21 ticks of its dump-frames pilot.
+     The walk's kernels (the port's own, counterparts of XLA code): W1
+     (crossings, K nearest, clip window) and W2 (compaction, records,
+     alpha words) on the arguments the port's walk gives them, each
+     bitwise against its plain version, W1 also beside the one
+     torch.sort(td, dim=2, stable=True) its plain version makes: on :test:
+     at 256 x 320x200 after the bench's warm-up (`walk_*`), at config 5's
+     MAP01 member (`walk_*_bank`), at entry()'s 2 envs (`walk_*_entry`),
+     W1 alone on :texstress: (`walk_cross_texstress`, the big-level
+     walk); printed only, :test: under portal_compact_crossings=1 with
+     yaws spread over the circle (envs overflow, and others do not) and
+     :doom2: MAP02.
   4. tools: the kernels of the port's two instruments, which no main-path
      segment runs (their launch counts there stay 0). B10
      (tools/onehotbench.py): ldg, smem and copy bitwise against the plain
@@ -313,6 +324,33 @@ KERNELS = {
     "peel_resolve_entry": dict(
         source="tpu_doom_torch/csrc/peel_resolve.cu",
         replaces="tpu_doom/ops/raster_pallas.py:322"),
+    # The walk's kernels: the port's own, counterparts of the XLA-compiled
+    # walk (tpu_doom/render/portal.py:_walk_env, no pl.pallas_call); W1
+    # replaces its crossings, sort and clip window, W2 its compaction,
+    # records and alpha words. On :test: at 256 x 320x200, at config 5's
+    # MAP01 member (1,024 envs at 640x400), at entry()'s 2 envs at 64x40;
+    # W1 also on :texstress: (the big-level walk).
+    "walk_cross": dict(
+        source="tpu_doom_torch/csrc/walk.cu",
+        replaces="tpu_doom/render/portal.py:795"),
+    "walk_records": dict(
+        source="tpu_doom_torch/csrc/walk.cu",
+        replaces="tpu_doom/render/portal.py:930"),
+    "walk_cross_bank": dict(
+        source="tpu_doom_torch/csrc/walk.cu",
+        replaces="tpu_doom/render/portal.py:795"),
+    "walk_records_bank": dict(
+        source="tpu_doom_torch/csrc/walk.cu",
+        replaces="tpu_doom/render/portal.py:930"),
+    "walk_cross_entry": dict(
+        source="tpu_doom_torch/csrc/walk.cu",
+        replaces="tpu_doom/render/portal.py:795"),
+    "walk_records_entry": dict(
+        source="tpu_doom_torch/csrc/walk.cu",
+        replaces="tpu_doom/render/portal.py:930"),
+    "walk_cross_texstress": dict(
+        source="tpu_doom_torch/csrc/walk.cu",
+        replaces="tpu_doom/render/portal.py:795"),
     # The instruments' kernels (phase 4); no main-path segment launches them.
     "onehot_lookup": dict(
         source="tpu_doom_torch/csrc/onehot_lookup.cu",
@@ -334,6 +372,9 @@ SECTOR_BYTES = 32  # the unit DRAM moves: scattered table reads count whole sect
 PEEL_TEST_OPS = 20    # one coverage test: five 3-term dot products
 SWEEP_TRI_OPS = 300   # one swept-sphere vs triangle test (face, 3 vertex, 3 edge)
 SHADE_PIXEL_OPS = 60  # one pixel's shade (texel address, light row)
+CROSS_TEST_OPS = 19   # one ray against one walk row: denom, t, u, the validity tests
+RECORD_OPS = 64       # one kept crossing's five records and alpha word in one column
+WALK = ("walk_cross", "walk_records")  # the walk's kernels (W1 only on big levels)
 
 
 class SmokeFailure(Exception):
@@ -909,6 +950,8 @@ def phase_kernels_entry(results):
     label = f"entry()'s 2 envs at {ENTRY_W}x{ENTRY_H}"
     phase_player_move(results, "_entry", label, sim.scene, sim.config, state)
     phase_portal(results, "_entry", label, sim, state, ENTRY_W, ENTRY_H)
+    phase_walk(results, "_entry", label, sim.portal_scene(), sim.scene, sim.config,
+               ENTRY_W, ENTRY_H, state)
 
     csim = cli.make_sim(cli.build_parser().parse_args(
         ["--iwad", ":test:", "-r", f"{ENTRY_W}x{ENTRY_H}"]))
@@ -999,6 +1042,136 @@ def bitwise_equal(a, b):
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def same_bits(a, b):
+    """Bitwise equal, floats compared as int32 bits (signed zeros)."""
+    if a.shape != b.shape:
+        return False
+    return bitwise_equal(a, b) if a.is_floating_point() else torch.equal(a, b)
+
+
+def walk_args(pscene, scene, cfg, width, height, state):
+    """The arguments the walk of `state` gives W1 and W2 (None where W2
+    does not run: the big-level walk)."""
+    from tpu_doom_torch.render import portal as P
+
+    act = P.active_segs(pscene, cfg)
+    with captured(P, "walk_cross") as cross, captured(P, "walk_records") as recs:
+        P.walk(pscene, scene, cfg, width, height, int(cfg.portal_crossings), state,
+               active_segs=act)
+    require(len(cross) == 1 and len(recs) <= 1, "the walk called W1 or W2 more than once")
+    return cross[0], (recs[0] if recs else None)
+
+
+@torch.no_grad()
+def phase_walk(results, suffix, label, pscene, scene, cfg, width, height, state,
+               records=True, row=True):
+    """W1, and W2 where the walk runs it (`records`), on the arguments the
+    port's walk of `state` gives them, each bitwise against its plain
+    version, timed beside its bound; W1 also beside the one
+    torch.sort(td, dim=2, stable=True) its plain version makes. `row`:
+    kept as the rows `walk_*<suffix>`, else printed only. W1's bound: its
+    inputs (the six prefix columns of the table) and outputs, or
+    CROSS_TEST_OPS per (env, column, row); W2's: the kept crossings'
+    W1 outputs, the 32-byte sectors of the table rows they select, the
+    alpha table and the outputs, or RECORD_OPS per kept crossing and
+    column. Returns W2's overflow (None without W2)."""
+    from tpu_doom_torch.ops.walk import (
+        PREFIX_COLS,
+        compact_order,
+        crossings,
+        walk_cross,
+        walk_cross_ref,
+        walk_records,
+        walk_records_ref,
+    )
+
+    cross, recs = walk_args(pscene, scene, cfg, width, height, state)
+    require((recs is not None) == records,
+            f"walk {label}: W2 ran {recs is not None}, expected {records}")
+    out = results if row else {f"walk_cross{suffix}": {}, f"walk_records{suffix}": {}}
+    got, want = walk_cross(*cross), walk_cross_ref(*cross)
+    torch.cuda.synchronize()
+    same = all(same_bits(a, b) for a, b in zip(got, want))
+    err = max(max_abs_err(a.float(), b.float()) for a, b in zip(got, want))
+    del want
+    ms, b2b = kernel_ms(lambda: walk_cross(*cross))
+    plain = time_ms(lambda: walk_cross_ref(*cross))
+    p1, p2, o, d, table, cyw, shear, near, far, p11, H, K = cross
+    B, SD, W = p1.shape[0], p1.shape[1], d.shape[1]
+    td, _ = crossings(p1, p2, o, d, near, far)
+    sort_ms, sort_b2b = kernel_ms(lambda: torch.sort(td, dim=2, stable=True))
+    del td
+    print(f"[kernel] W1 walk_cross {label}: B {B}, rows {SD}, W {W}, K {K}: bitwise"
+          f" equal {same} (ceiling 0), max_abs_err {err}; {ms:.4f} ms ({b2b:.4f} back to"
+          f" back) vs plain {plain:.4f} ms; the torch.sort(td, dim=2, stable=True) it"
+          f" replaces {sort_ms:.4f} ms ({sort_b2b:.4f} back to back)")
+    require(same, f"W1 disagrees with its plain version on {label}")
+    record(out, "walk_cross" + suffix, err, ms, b2b, plain,
+           nbytes(p1, p2, o, d, cyw, shear, *got) + B * SD * len(PREFIX_COLS) * 4,
+           B * W * SD * CROSS_TEST_OPS)
+    out["walk_cross" + suffix]["sort_ms"] = sort_ms
+    del got
+    if recs is None:
+        return None
+    t, uf, idx, live, top, bot, mask, ovf_in, table, aw, cyw, shear, p11, H, kc, shift = recs
+    got, want = walk_records(*recs), walk_records_ref(*recs)
+    torch.cuda.synchronize()
+    same = all(same_bits(a, b) for a, b in zip(got, want))
+    err = max(max_abs_err(a.float(), b.float()) for a, b in zip(got, want))
+    del want
+    ms, b2b = kernel_ms(lambda: walk_records(*recs))
+    plain = time_ms(lambda: walk_records_ref(*recs))
+    K = t.shape[1]
+    kept = idx if not kc else torch.gather(
+        idx, 1, compact_order(mask, K, kc)[:, :, None].expand(-1, -1, W))
+    ns = kept.shape[1]
+    n_bytes = (nbytes(*got, mask, ovf_in, aw, cyw, shear) + 21 * B * ns * W
+               + row_sector_bytes(kept.reshape(B, -1), table)
+               + (0 if shift is None else nbytes(shift)))
+    overflow = got[2]
+    print(f"[kernel] W2 walk_records {label}: kc {kc}, records {tuple(got[0].shape)},"
+          f" words {tuple(got[1].shape)}, {int(overflow.sum())} of {B} envs overflow:"
+          f" bitwise equal {same} (ceiling 0), max_abs_err {err}; {ms:.4f} ms ({b2b:.4f}"
+          f" back to back) vs plain {plain:.4f} ms")
+    require(same, f"W2 disagrees with its plain version on {label}")
+    record(out, "walk_records" + suffix, err, ms, b2b, plain, n_bytes,
+           B * ns * W * RECORD_OPS)
+    return overflow
+
+
+def phase_kernels_walk(results):
+    """W1 and W2 on :test: at 256 x 320x200 after the bench's warm-up ticks
+    (the `walk_*` rows); printed only: :test: under
+    portal_compact_crossings=1 with the envs' yaws spread over the circle
+    (about half of them overflow) and :doom2: MAP02."""
+    sim = make_sim()
+    state = sim.reset()
+    acts = bench_actions(sim, B_MAIN)
+    for _ in range(WARMUP_TICKS):
+        state = sim.step(state, acts)
+    label = f":test: {B_MAIN} x {W_MAIN}x{H_MAIN}"
+    phase_walk(results, "", label, sim.portal_scene(), sim.scene, sim.config, W_MAIN,
+               H_MAIN, state)
+    osim = make_sim(portal_compact_crossings=1)
+    spread = state._replace(yaw=torch.linspace(-np.pi, np.pi, B_MAIN + 1,
+                                               device="cuda")[:B_MAIN])
+    overflow = phase_walk(results, "_overflow", label + " portal_compact_crossings=1,"
+                          " yaws spread over the circle", osim.portal_scene(), osim.scene,
+                          osim.config, W_MAIN, H_MAIN, spread, row=False)
+    require(bool(overflow.any()) and not bool(overflow.all()),
+            "the overflow case needs envs that overflow and envs that do not")
+    del sim, osim, state, spread
+    dsim = make_sim(wad_file=":doom2:", initial_level_index=1)
+    state = dsim.reset()
+    for _ in range(WARMUP_TICKS):
+        state = dsim.step(state, bench_actions(dsim, B_MAIN))
+    phase_walk(results, "_doom2", f":doom2: MAP02 {B_MAIN} x {W_MAIN}x{H_MAIN}",
+               dsim.portal_scene(), dsim.scene, dsim.config, W_MAIN, H_MAIN, state,
+               row=False)
+    del dsim, state
+    torch.cuda.empty_cache()
+
+
 def texstress_state():
     """The :texstress: main-path state: 256 envs after 8 bench ticks."""
     sim = make_sim(wad_file=TEX_WAD)
@@ -1044,6 +1217,9 @@ def phase_kernels_texstress(results):
           " envs at 0, 1, ... substeps")
     require(same, f"B1 on {TEX_WAD} disagrees with its plain version")
     del rows, st8
+    phase_walk(results, "_texstress", f"{TEX_WAD} {B_MAIN} x {W_MAIN}x{H_MAIN}",
+               sim.portal_scene(), sim.scene, sim.config, W_MAIN, H_MAIN, state,
+               records=False)
     with captured(P, "select_rows") as calls:
         args, kw, _ = P.fused_inputs(sim.portal_scene(), sim.scene, sim.config,
                                      W_MAIN, H_MAIN, state)
@@ -1398,6 +1574,10 @@ def phase_kernels_bank(results):
     lv = 2
     phase_player_move(results, "_bank", f"config 5's MAP01 ({E} envs, padded table)",
                       bank._at(bank.scenes, lv), bank.cfg, bank._at(state, lv))
+    phase_walk(results, "_bank", f"config 5's MAP01 ({E} envs, padded table) at"
+               f" {BANK_W}x{BANK_H}", bank._at(bank.pscenes, lv), bank._at(bank.scenes, lv),
+               bank.cfg, BANK_W, BANK_H, bank._at(state, lv))
+    torch.cuda.empty_cache()
     args, kw, _ = P.fused_inputs(bank._at(bank.pscenes, lv), bank._at(bank.scenes, lv),
                                  bank.cfg, BANK_W, BANK_H, bank._at(state, lv))
     del bank, state
@@ -1945,10 +2125,10 @@ def phase_bank():
     segments = {}
     segments["bank5"], _ = bank_segment(
         "bank5", "BASELINE config 5 (E1M1, E1M2, MAP01, MAP02)", BANK5, BANK5_E, BANK_W,
-        BANK_H, BANK_WINDOWS, BANK_TICKS, ("player_move", "render_portal_fused"))
+        BANK_H, BANK_WINDOWS, BANK_TICKS, ("player_move", "render_portal_fused") + WALK)
     segments["bank8"], _ = bank_segment(
         "bank8", "the L=8 bank (bench.py:277-283)", BANK8, BANK8_E, BANK_W, BANK_H,
-        BANK_WINDOWS, BANK8_TICKS, ("player_move", "render_portal_fused"))
+        BANK_WINDOWS, BANK8_TICKS, ("player_move", "render_portal_fused") + WALK)
     segments["bank_big"] = bank_big_segment("bank_big")
     segments["bank_oracle"] = bank_oracle_segment("bank_oracle", "portal_jnp")
     segments["bank_fallback"] = bank_oracle_segment("bank_fallback", "portal")
@@ -1968,7 +2148,7 @@ def phase_main(results):
     load = ", ".join(f"{x:.2f}" for x in os.getloadavg())
     print(f"[host] {os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} usable;"
           f" load average {load}")
-    main_needed = ("player_move", "render_portal_fused")
+    main_needed = ("player_move", "render_portal_fused") + WALK
     segments, eager = {}, {}
     segments["bench"], eager["bench"] = timed_segment(
         "main", f":test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs", sim, state, acts,
@@ -1997,7 +2177,7 @@ def phase_main(results):
     acts = bench_actions(sim, B_MAIN)
     state, _, _ = run_ticks(sim, state, acts, TEX_WARMUP)
     torch.cuda.synchronize()
-    oracle_needed = ("player_move", "classify_alpha", "shade_portal")
+    oracle_needed = ("player_move", "classify_alpha", "shade_portal") + WALK
     segments["oracle"], eager["oracle"] = timed_segment(
         "oracle", f":test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs raster_backend=portal_jnp",
         sim, state, acts, TEX_WINDOWS, TEX_TICKS, oracle_needed)
@@ -2016,10 +2196,11 @@ def phase_main(results):
         del fsim, fstate
 
     for seg, extra, needed in (
-            ("texstress", {}, ("player_move", "render_portal_fused", "select_rows")),
+            ("texstress", {}, ("player_move", "render_portal_fused", "select_rows",
+                               "walk_cross")),
             ("texstress_act", dict(portal_global_segs_max=TEX_CAP),
              ("player_move", "render_portal_fused", "select_rows", "scatter_live",
-              "gather_cells", "render_portal_fused_per_env"))):
+              "gather_cells", "render_portal_fused_per_env", "walk_cross"))):
         sim = make_sim(wad_file=TEX_WAD, **extra)
         state = sim.reset()
         acts = bench_actions(sim, B_MAIN)
@@ -2060,8 +2241,11 @@ def tally(results, segments):
         c["depth_peel_maze"] = c["depth_peel"] if maze else 0
         # The entry points' rows: the CLI's and entry()'s runs at 64x40.
         at_entry = seg in ("entry_cli", "entry_fn")
-        for name in ("player_move", "render_portal_fused", "peel_resolve"):
+        for name in ("player_move", "render_portal_fused", "peel_resolve") + WALK:
             c[name + "_entry"] = c[name] if at_entry else 0
+        for name in WALK:
+            c[name + "_bank"] = c[name] if seg in config5 else 0
+        c["walk_cross_texstress"] = c["walk_cross"] if maze else 0
     totals = {k: sum(c.get(k, 0) for c in segments.values()) for k in results}
     for name, r in results.items():
         require(name in TOOL_KERNELS or totals[name] > 0,
@@ -2199,7 +2383,7 @@ def phase_entry_points():
 
     torch.cuda.empty_cache()  # the subprocesses' memory
     segments = {}
-    main_needed = ("player_move", "render_portal_fused")
+    main_needed = ("player_move", "render_portal_fused") + WALK
     _, segments["entry_bench"] = entry_point(
         "entry_bench", ["tpu_doom_torch.bench"], main_needed)
     _, segments["entry_bank"] = entry_point(
@@ -2208,7 +2392,7 @@ def phase_entry_points():
     out, segments["entry_verify"] = entry_point(
         "entry_verify", ["tpu_doom_torch.bench", "--verify"],
         ("render_portal_fused", "classify_alpha", "shade_portal", "peel_resolve",
-         "depth_peel", "select_rows", "scatter_live", "gather_cells"))
+         "depth_peel", "select_rows", "scatter_live", "gather_cells") + WALK)
     for leg, r in out["legs"].items():
         print(f"[entry_verify] {leg}: portal vs portal_jnp {r['mismatch_px']} px,"
               f" {r['mismatch_cov']} cov; JAX golden {r['golden_px']} px, {r['golden_cov']}"
@@ -2389,7 +2573,7 @@ def phase_parallel():
     {segment: launch counts}."""
     torch.cuda.empty_cache()
     segments = {}
-    needed = ("player_move", "render_portal_fused")
+    needed = ("player_move", "render_portal_fused") + WALK
     _, segments["parallel_dp1_nccl"] = parallel_world("parallel_dp1_nccl", 1)
     _, segments["parallel_dp2_gloo"] = parallel_world("parallel_dp2_gloo", 2, "gloo")
     segments["parallel_bank5_sharded"] = bank5_sharded_segment("parallel_bank5_sharded")
@@ -2509,9 +2693,9 @@ def phase_perf_tools():
     require(kinds == {True, False},
             f"fallbackrate: the budget pass compared overflow values {kinds}, not both")
     del sim, plain
-    needed = {"tools_perfcmp": ("player_move", "render_portal_fused"),
-              "tools_stagebudget": ("player_move", "render_portal_fused"),
-              "tools_fallbackrate": ("player_move", "select_rows")}
+    needed = {"tools_perfcmp": ("player_move", "render_portal_fused") + WALK,
+              "tools_stagebudget": ("player_move", "render_portal_fused") + WALK,
+              "tools_fallbackrate": ("player_move", "select_rows", "walk_cross")}
     for seg, names in needed.items():
         for name in names:
             require(segments[seg].get(name, 0) > 0, f"{seg}: {name} did not run")
@@ -2527,6 +2711,7 @@ def main():
     results = {name: dict(name=name, route="cuda", **meta)
                for name, meta in KERNELS.items()}
     phase_kernels(results)
+    phase_kernels_walk(results)
     phase_kernels_maze(results)
     phase_kernels_texstress(results)
     phase_kernels_bank(results)

@@ -169,6 +169,130 @@ def test_big_walk_kernels_match_plain_versions_on_card(cuda_device):
     assert torch.equal(gi, wi) and torch.equal(gc, wc)
 
 
+# Walk cases at 64x40 on 4 envs, two of them pitched: wad, config, whether
+# the level takes the small-level walk (W2 runs there only).
+WALK_CASES = {
+    "test": (":test:", {}, True),
+    "doom2": (":doom2:", {}, True),
+    "overflow": (":test:", dict(portal_compact_crossings=1), True),
+    "no_compaction": (":test:", dict(portal_compact_crossings=0), True),
+    "crossings12": (":test:", dict(portal_crossings=12), True),
+    "small_active_set": (":test:", dict(portal_global_segs_max=64), True),
+    "big": (":texstress:10x16", {}, False),
+    "big_cull": (":texstress:", dict(portal_visible_segs=208), False),
+}
+
+
+def _bitwise(a, b):
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _walk_calls(case, device):
+    """The arguments the walk of WALK_CASES[case] gives W1 and W2 (a list
+    each, empty where it does not run) and the sim and state it walked."""
+    from tpu_doom_torch.render import portal as P
+
+    wad, extra, _ = WALK_CASES[case]
+    sim = TorchSim(GameConfig(wad_file=wad, width=64, height=40, batch_size=4,
+                              raster_backend="portal", **extra), device)
+    s = sim.reset()
+    a = sim.null_actions()._replace(movement=torch.tensor([[0.0, 1.0]] * 4, device=device))
+    for _ in range(3):
+        s = sim.step(s, a)
+    s = s._replace(yaw=s.yaw + torch.tensor([0.0, 0.7, 2.1, -1.3], device=device),
+                   pitch=torch.tensor([0.0, 0.3, 0.0, -0.2], device=device))
+    calls = {"walk_cross": [], "walk_records": []}
+    origs = {n: getattr(P, n) for n in calls}
+
+    def spy(name):
+        def f(*args):
+            calls[name].append(args)
+            return origs[name](*args)
+        return f
+
+    try:
+        for n in calls:
+            setattr(P, n, spy(n))
+        act = P.active_segs(sim.portal_scene(), sim.config)
+        out = P.walk(sim.portal_scene(), sim.scene, sim.config, 64, 40,
+                     int(sim.config.portal_crossings), s, active_segs=act)
+    finally:
+        for n, f in origs.items():
+            setattr(P, n, f)
+    return calls, out, sim, s, act
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_walk_kernels_match_plain_versions_on_card(cuda_device, case):
+    """On the card: W1 bit-equal to its plain version on every walk
+    branch, W2 on the small-level one, and the walk on the card bit-equal
+    to the plain walk on the CPU (records, words, overflow)."""
+    from tpu_doom_torch.ops import walk_cross, walk_cross_ref, walk_records, walk_records_ref
+    from tpu_doom_torch.render import portal as P
+    from tpu_doom_torch.sim.state import SimState
+
+    calls, (rec, words, aux), sim, s, act = _walk_calls(case, cuda_device)
+    small = WALK_CASES[case][2]
+    assert len(calls["walk_cross"]) == 1
+    assert len(calls["walk_records"]) == int(small)
+    got, want = walk_cross(*calls["walk_cross"][0]), walk_cross_ref(*calls["walk_cross"][0])
+    assert all(_bitwise(x, y) for x, y in zip(got, want))
+    if small:
+        args = calls["walk_records"][0]
+        got, want = walk_records(*args), walk_records_ref(*args)
+        assert all(_bitwise(x, y) for x, y in zip(got, want))
+    cpu = TorchSim(sim.config, "cpu")
+    rc, wc, auxc = P.walk(cpu.portal_scene(), cpu.scene, cpu.config, 64, 40,
+                          int(cpu.config.portal_crossings),
+                          SimState(*(x.cpu() for x in s)), active_segs=act)
+    assert _bitwise(rec.cpu(), rc) and _bitwise(words.cpu(), wc)
+    assert torch.equal(aux["overflow"].cpu(), auxc["overflow"])
+    if case == "overflow":
+        assert bool(aux["overflow"].any())
+
+
+@pytest.mark.cuda
+def test_walk_kernels_in_captured_graph_on_card(cuda_device):
+    """W1 then W2 captured in one CUDA graph: a replay gives their plain
+    versions' outputs, bitwise."""
+    from tpu_doom_torch.ops import walk_cross, walk_cross_ref, walk_records, walk_records_ref
+
+    calls, *_ = _walk_calls("test", cuda_device)
+    cross = calls["walk_cross"][0]
+    rest = calls["walk_records"][0][7:]  # overflow, table, aw, cyw, shear, ...
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        walk_records(*walk_cross(*cross), *rest)  # warm-up, outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        w1 = walk_cross(*cross)
+        w2 = walk_records(*w1, *rest)
+    graph.replay()
+    torch.cuda.synchronize()
+    want1 = walk_cross_ref(*cross)
+    assert all(_bitwise(x, y) for x, y in zip(w1, want1))
+    want2 = walk_records_ref(*want1, *rest)
+    assert all(_bitwise(x, y) for x, y in zip(w2, want2))
+
+
+@pytest.mark.cuda
+def test_walk_cross_refuses_more_crossings_than_it_keeps(cuda_device):
+    """W1 keeps at most KMAX crossings per column: a larger K raises
+    rather than falling back to the eager walk."""
+    from tpu_doom_torch.ops.walk import KMAX, walk_cross
+
+    calls, *_ = _walk_calls("test", cuda_device)
+    args = list(calls["walk_cross"][0])
+    args[-1] = KMAX + 1
+    with pytest.raises(ValueError):
+        walk_cross(*args)
+
+
 @pytest.mark.cuda
 def test_reference_config_kernels_match_plain_versions_on_card(cuda_device):
     """On the card: B7 and B8 bit-equal to their plain versions on the

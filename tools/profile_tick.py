@@ -74,8 +74,8 @@ from tpu_doom_torch.render import portal as P  # noqa: E402
 KERNEL_NAMES = ("player_move_kernel", "render_portal_kernel",
                 "peel_resolve_kernel", "select_rows_kernel",
                 "scatter_live", "gather_cells_kernel", "classify_alpha_kernel",
-                "shade_portal_kernel", "depth_peel_kernel", "radixSort",
-                "set_condition_kernel")
+                "shade_portal_kernel", "depth_peel_kernel", "walk_cross_kernel",
+                "walk_records_kernel", "radixSort", "set_condition_kernel")
 
 
 def sync(device):

@@ -26,6 +26,7 @@ from .raster import (
     shade_portal,
     shade_portal_ref,
 )
+from .walk import walk_cross, walk_cross_ref, walk_records, walk_records_ref
 
 # name -> wrapper, for resetting and reading the launch counts.
 KERNELS = {
@@ -38,6 +39,8 @@ KERNELS = {
     "classify_alpha": classify_alpha,
     "shade_portal": shade_portal,
     "depth_peel": depth_peel,
+    "walk_cross": walk_cross,
+    "walk_records": walk_records,
 }
 
 
@@ -107,4 +110,8 @@ __all__ = [
     "pack_triangle_rows",
     "depth_peel",
     "depth_peel_ref",
+    "walk_cross",
+    "walk_cross_ref",
+    "walk_records",
+    "walk_records_ref",
 ]

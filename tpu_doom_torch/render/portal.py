@@ -14,15 +14,21 @@ triangle path (kernel B3, or B9 under `portal_jnp`) instead.
 
 The JAX walk selects per-crossing attributes with exact one-hot matmuls;
 here they are indexed loads. `vmap` becomes the leading env dimension:
-per-seg tables are (B, SD, C), crossings (B, K, W).
+per-seg tables are (B, SD, C), crossings (B, K, W). The per-(env, row)
+attribute table is built here with tensor ops; kernel W1
+(`ops.walk.walk_cross`) then crosses every column's ray with every row,
+keeps the K nearest and runs the clip window, and on small levels kernel
+W2 (`ops.walk.walk_records`) compacts the crossings and writes the span
+records and alpha words.
 
 Big levels (more than 192 walk rows, segs + sprites, at the shipped
 defaults) take the big-level walk:
 * the visible-seg cull (`portal_visible_segs`, on any level where
   0 < SV < SD): a conservative per-row test keeps at most SV rows per env
   before the crossing math; envs with more visible rows overflow;
-* the attribute select through kernel B4 (`ops.raster.select_rows`)
-  when crossing compaction is off;
+* the records built here with tensor ops, their attributes selected
+  through kernel B4 (`ops.raster.select_rows`) when crossing compaction
+  is off;
 * the active-set texel path when the compact texel table exceeds
   `portal_global_segs_max`: per-seg live counts (kernel B6
   `scatter_live` with the select, a scatter-add otherwise) mark the
@@ -49,34 +55,22 @@ from ..ops.raster import (
     select_rows,
     shade_portal,
 )
+from ..ops.walk import (
+    SMALL_LEVEL_ROWS,
+    alpha_words,
+    build_records,
+    compact_order,
+    mask_bits_to_bool,
+    select_cols,
+    shifted_cb,
+    walk_cross,
+    walk_records,
+)
 from ..sim.lights import light_table_u8
 from .camera import tan_f32
 from .raster import ANIM_FPS, anim_atlas_uv, render_frames, sky_x_texel, sky_y_texel
 
-BIG_T = 1e30  # finite depth sentinel for invalid crossings
 PITCH_EPS = 1e-5  # |pitch| above this engages the y-shear (or fallback)
-SMALL_LEVEL_ROWS = 192  # S+D walk rows the small-level branch covers
-
-# Record channel layout (same as the JAX package).
-R_Y0, R_Y1, R_KIND, R_P0 = 0, 1, 2, 3
-R_TSX, R_TSY, R_CBASE, R_LIGHT, R_W = 4, 5, 6, 7, 8
-R_T1, R_T2, R_LOW, R_HIGH = 9, 10, 11, 12
-R_MASKED, R_AX, R_AY = 13, 14, 15
-NCH = 16
-KIND_NONE, KIND_FLAT, KIND_WALL, KIND_SKY, KIND_DECOR = 0.0, 1.0, 2.0, 3.0, 4.0
-RECORDS_PER_CROSSING = 5
-
-# Per-seg attribute table columns, the JAX table's 74
-# (portal.py:694-720). PIECE0 + 16 * pi + j is piece pi's column j.
-(C_HB, C_FC, C_FF, C_FCS, C_FFS, C_BCS, C_BFS, C_CEILROW, C_FLOORROW,
- C_BCROW, C_BFROW, C_LFLAT) = range(12)
-C_CA, C_FA, C_SOLID, C_SPRITE, C_CCB, C_FCB, C_CCID, C_FCID = (
-    12, 16, 20, 21, 22, 23, 24, 25)
-PIECE0, PIECE_C = 26, 16
-(P_EXISTS, P_MASKED, P_LOW, P_HIGH, P_A, P_B, P_T1, P_T2, P_LIGHT, P_AB,
- P_EXMASK, P_CB, P_CID) = 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15
-# The clip-window prefix's columns: has_back, the four row heights, solid.
-PREFIX_COLS = [C_HB, C_CEILROW, C_FLOORROW, C_BCROW, C_BFROW, C_SOLID]
 SLOT_ROWS = 8  # active-table slots are allocated in 8-row blocks
 
 
@@ -491,10 +485,6 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
     lights_f = light_table_u8(scene, time).to(torch.float32) * f32(1.0 / 255.0)  # (B, L)
     ls = lights_f.shape[1]
 
-    def row_of(h, tt, cyw_, shear_):
-        ndc_y = p11 * (h - cyw_) / tt
-        return H - (ndc_y + 1.0) * 0.5 * H + shear_
-
     tcol = time[:, None]  # (B, 1)
 
     def anim_base(a6, atlas_w):
@@ -506,7 +496,6 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
     flats_w = float(scene.flats_atlas.shape[1])
     walls_w = float(scene.walls_atlas_index.shape[1])
     hmin, hmax = pt["hmin"], pt["hmax"]
-    NEG, POS = -1e9, 1e9
 
     def off(obj):
         return objoff[:, obj.long()]
@@ -589,113 +578,37 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
         table = _gather_rows(table, ordv)
         SD = SV
 
-    # --- crossings (B, W, SD) ---------------------------------------------
-    e = p2 - p1
-    po = p1 - o[:, None, :]
-    d0, d1 = d[:, :, None, 0], d[:, :, None, 1]
-    e0, e1 = e[:, None, :, 0], e[:, None, :, 1]
-    po0, po1 = po[:, None, :, 0], po[:, None, :, 1]
-    denom = d0 * e1 - d1 * e0
-    safe = torch.where(torch.abs(denom) < 1e-12, 1.0, denom)
-    t = (po0 * e1 - po1 * e0) / safe
-    u = (po0 * d1 - po1 * d0) / safe
-    valid = ((torch.abs(denom) >= 1e-12) & (denom > 0.0) & (t > pcfg.near)
-             & (t < pcfg.far) & (u >= 0.0) & (u <= 1.0))
-    td = torch.where(valid, t, BIG_T)
-    # Stable sort: equal depths keep seg-id order.
-    td_s, order = torch.sort(td, dim=2, stable=True)
+    # --- crossings, the K nearest per column and the clip window (W1).
     K = min(n_cross, SD)
-    order = order[:, :, :K]
-    idx = order.transpose(1, 2)  # (B, K, W)
-    t = td_s[:, :, :K].transpose(1, 2)
-    uf = torch.gather(u, 2, order).transpose(1, 2)
+    t, uf, idx, live, top, bot, mask = walk_cross(
+        p1, p2, o, d, table, cyw, row_shear, pcfg.near, pcfg.far, p11, H, K)
 
-    valid = t < BIG_T / 10.0
-    safe_t = torch.where(valid, t, 1.0)
-    cyw3, shear3 = cyw[:, None, None], row_shear[:, None, None]
-
-    def select(cols, ix):
-        """Attribute columns `cols` (a slice, or a list stacked from views:
-        an index list would be copied to the device on every call) at the
-        crossings' seg ids -> (B, K, W, n)."""
-        Bk, Kk, Wk = ix.shape
-        sub = (table[:, :, cols] if isinstance(cols, slice)
-               else torch.stack([table[:, :, c] for c in cols], dim=2))
-        flat = ix.reshape(Bk, Kk * Wk, 1).expand(-1, -1, sub.shape[2])
-        return torch.gather(sub, 1, flat).reshape(Bk, Kk, Wk, sub.shape[2])
-
-    # Attribute select. On big levels without crossing compaction, kernel
-    # B4 selects all columns at every crossing in one pass, read by both
-    # the clip-window prefix and the records; otherwise gathers select
-    # the prefix columns now and all columns after compaction.
+    # --- records and alpha words of the first K_c crossings live in any
+    # column (crossing compaction; all K without it): W2 on small levels.
     K_c = compact_crossings(cfg, SD_full)
-    use_sel = (cfg.portal_select_rows != "off" and K_c == 0
-               and SD_full > SMALL_LEVEL_ROWS)
-    if use_sel:
-        idx_flat = idx.reshape(B, K * W).to(torch.int32)
-        vals_cn = select_rows(idx_flat, table)  # (B, C, K * W)
-
-        def col(c):
-            return vals_cn[:, c].reshape(B, K, W)
-
-        pre = [col(c) for c in PREFIX_COLS]
-    else:
-        sv = select(PREFIX_COLS, idx)
-        pre = [sv[..., j] for j in range(len(PREFIX_COLS))]
-    hb_p = pre[0] > 0.5
-    solid_p = pre[5] > 0.5
-    r_fc_p = row_of(pre[1], safe_t, cyw3, shear3)
-    r_ff_p = row_of(pre[2], safe_t, cyw3, shear3)
-    row_bc = row_of(pre[3], safe_t, cyw3, shear3)
-    row_bf = row_of(pre[4], safe_t, cyw3, shear3)
-
-    # Clip-window prefix over crossings (cummax / cummin along K).
-    vs = valid & solid_p
-    step_top = torch.where(vs, torch.where(hb_p, torch.maximum(r_fc_p, row_bc), r_fc_p), NEG)
-    step_bot = torch.where(vs, torch.where(hb_p, torch.minimum(r_ff_p, row_bf), r_ff_p), POS)
-    cum_top = torch.cummax(step_top, dim=1).values
-    cum_bot = torch.cummin(step_bot, dim=1).values
-    top = torch.clamp_min(
-        torch.cat([torch.full_like(cum_top[:, :1], NEG), cum_top[:, :-1]], dim=1), 0.0)
-    bot = torch.clamp_max(
-        torch.cat([torch.full_like(cum_bot[:, :1], POS), cum_bot[:, :-1]], dim=1),
-        float(H))
-    top1_p = torch.where(solid_p, torch.maximum(top, r_fc_p), top)
-    bot1_p = torch.where(solid_p, torch.minimum(bot, r_ff_p), bot)
-    new_top = torch.where(hb_p, torch.maximum(top1_p, row_bc), top1_p)
-    new_bot = torch.where(hb_p, torch.minimum(bot1_p, row_bf), bot1_p)
-    blocker = (vs & (~hb_p | (new_top >= new_bot))) | ~valid
-    blocked = torch.cummax(blocker.to(torch.int32), dim=1).values > 0
-    done_before = torch.cat(
-        [torch.zeros_like(blocked[:, :1]), blocked[:, :-1]], dim=1)
-    live = valid & ~done_before
-
-    # --- crossing compaction: the first K_c crossings live in any column.
-    if 0 < K_c < n_cross:
-        live_k = live.any(dim=2)  # (B, K)
-        overflow = overflow | (live_k.sum(dim=1) > K_c)
-        ordk = torch.sort((~live_k).to(torch.int32), dim=1, stable=True).indices[:, :K_c]
-        g = ordk[:, :, None].expand(-1, -1, W)
-        t = torch.gather(t, 1, g)
-        uf = torch.gather(uf, 1, g)
-        idx = torch.gather(idx, 1, g)
-        live = torch.gather(live, 1, g)
-        top = torch.gather(top, 1, g)
-        bot = torch.gather(bot, 1, g)
-        valid = t < BIG_T / 10.0
-        safe_t = torch.where(valid, t, 1.0)
-        K_eff = ordk.shape[1]
-    else:
-        K_eff = K
+    kc = K_c if 0 < K_c < n_cross else 0
+    aw = pt["alpha_words"]
+    small = SD_full <= SMALL_LEVEL_ROWS
+    # On big levels without crossing compaction, kernel B4 selects every
+    # attribute column at every crossing in one pass.
+    use_sel = cfg.portal_select_rows != "off" and K_c == 0 and not small
+    idx_flat = idx.reshape(B, K * W) if use_sel else None
+    kept = (t, uf, idx, live, top, bot)
+    if kc and (active_segs or not small):
+        g = compact_order(mask, K, kc)[:, :, None].expand(-1, -1, W)
+        kept = tuple(torch.gather(x, 1, g) for x in kept)
+    if kc and not small:
+        overflow = overflow | (mask_bits_to_bool(mask, K).sum(dim=1) > kc)
 
     # --- active-set allocation (texel tables above portal_global_segs_max).
+    shift = gather_meta = None
     if active_segs:
-        live_f = live.to(torch.float32).reshape(B, -1)
+        live_f = kept[3].to(torch.float32).reshape(B, -1)
         if use_sel:
             seg_live_f = scatter_live(idx_flat, live_f, SD)
         else:
             seg_live_f = torch.zeros((B, SD), dtype=torch.float32, device=dev)
-            seg_live_f.scatter_add_(1, idx.reshape(B, -1), live_f)
+            seg_live_f.scatter_add_(1, kept[2].long().reshape(B, -1), live_f)
         if ordv is not None:
             # Compacted rows home to level rows (ordv's rows are distinct;
             # rows past the visible count are invisible and count 0).
@@ -703,116 +616,30 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
                                      device=dev).scatter_(1, ordv, seg_live_f)
         gather_meta, slot_start, ovf = _active_set(pt, seg_live_f, active_segs)
         overflow = overflow | ovf
-        gseg0 = pt["cell_gseg0"]
-        n_cells = gseg0.shape[0]
+        # Each cell's move of its texel bases into the env's active table.
+        shift = (slot_start - pt["cell_gseg0"][None, :]) * 128.0
 
-        def remap_cb(cb, cid):
-            """Texel bases into the env's active table."""
-            ci = cid.to(torch.int64).clamp(0, n_cells - 1)
-            slot = torch.gather(slot_start, 1, ci.reshape(B, -1)).reshape(ci.shape)
-            shift = (slot - gseg0[ci]) * 128.0
-            return torch.where(cid < 0.0, 0.0, cb + shift)
+    if small:
+        records, words, overflow = walk_records(
+            t, uf, idx, live, top, bot, mask, overflow, table, aw, cyw, row_shear,
+            p11, H, kc, shift)
     else:
-        gather_meta = None
+        t, uf, idx, live, top, bot = kept
+        if use_sel:
+            vals_cn = select_rows(idx_flat, table)  # (B, C, K * W)
 
-        def remap_cb(cb, cid):
-            return cb
-
-    if not use_sel:
-        vals = select(slice(None), idx)  # (B, K_eff, W, C)
-
-        def col(c):
-            return vals[..., c]
-
-    hb = col(C_HB) > 0.5
-    solid = col(C_SOLID) > 0.5
-    sprite = col(C_SPRITE) > 0.5
-    fc, ff = col(C_FC), col(C_FF)
-    fcs, ffs = col(C_FCS) > 0.5, col(C_FFS) > 0.5
-    bcs, bfs = col(C_BCS) > 0.5, col(C_BFS) > 0.5
-    light_flat = col(C_LFLAT)
-    r_fc = row_of(col(C_CEILROW), safe_t, cyw3, shear3)
-    r_ff = row_of(col(C_FLOORROW), safe_t, cyw3, shear3)
-    top1 = torch.where(solid, torch.maximum(top, r_fc), top)
-    bot1 = torch.where(solid, torch.minimum(bot, r_ff), bot)
-
-    recs = []
-    zero = torch.zeros((B, K_eff, W), dtype=torch.float32, device=dev)
-
-    def rec(y0, y1, kind, p0=0.0, ab=None, light=0.0, w=0.0, t1=0.0, t2=0.0,
-            low=0.0, high=0.0, masked=0.0, cbase=0.0, ok=None):
-        # Every channel is gated by ok; `+ zero` also turns -0.0 into +0.0
-        # exactly as the JAX walk's gate does.
-        def gate(v):
-            return torch.where(ok, v, 0.0) + zero
-
-        ch = [None] * NCH
-        ch[R_Y0] = torch.where(ok, y0, 1e9) + zero
-        ch[R_Y1] = torch.where(ok, y1, -1e9) + zero
-        ch[R_KIND] = torch.where(ok, kind, KIND_NONE) + zero
-        ch[R_P0] = gate(p0)
-        if ab is None:
-            for c in (R_AX, R_AY, R_TSX, R_TSY):
-                ch[c] = zero
+            def col(c):
+                return vals_cn[:, c].reshape(B, K, W)
         else:
-            ch[R_AX], ch[R_AY] = gate(ab[0]), gate(ab[1])
-            ch[R_TSX], ch[R_TSY] = gate(ab[2]), gate(ab[3])
-        ch[R_MASKED] = torch.where(ok, masked, 0.0) + zero
-        ch[R_CBASE] = gate(cbase)
-        ch[R_LIGHT] = gate(light)
-        ch[R_W] = gate(w)
-        ch[R_T1] = gate(t1)
-        ch[R_T2] = gate(t2)
-        ch[R_LOW] = gate(low)
-        ch[R_HIGH] = gate(high)
-        recs.append(torch.stack(ch, dim=2))  # (B, K_eff, NCH, W)
+            vals = select_cols(table, slice(None), idx.long())  # (B, K_c, W, C)
 
-    # Ceiling span, with the sky band at sky -> non-sky boundaries folded in.
-    band_c = fcs & (~hb | ~bcs)
-    rec(top,
-        torch.where(band_c, torch.minimum(bot1, row_of(fc, safe_t, cyw3, shear3)),
-                    torch.minimum(bot, r_fc)),
-        torch.where(fcs, KIND_SKY, KIND_FLAT),
-        p0=col(C_CEILROW), ab=tuple(col(C_CA + j) for j in range(4)),
-        light=light_flat, cbase=remap_cb(col(C_CCB), col(C_CCID)), ok=live & solid)
-    # Floor span, with its sky band.
-    band_f = ffs & (~hb | ~bfs)
-    rec(torch.where(band_f, torch.maximum(top1, row_of(ff, safe_t, cyw3, shear3)),
-                    torch.maximum(top, r_ff)),
-        torch.where(band_f, bot1, bot),
-        torch.where(ffs, KIND_SKY, KIND_FLAT),
-        p0=col(C_FLOORROW), ab=tuple(col(C_FA + j) for j in range(4)),
-        light=light_flat, cbase=remap_cb(col(C_FCB), col(C_FCID)), ok=live & solid)
-    # Wall pieces lower / middle / upper (sprites ride the middle).
-    for pi in range(3):
-        c0 = PIECE0 + pi * PIECE_C
-        pe = col(c0 + P_EXISTS) > 0.5
-        masked = col(c0 + P_EXMASK) > 0.5
-        plow, phigh = col(c0 + P_LOW), col(c0 + P_HIGH)
-        uu = col(c0 + P_A) + col(c0 + P_B) * uf
-        if pi == 1:
-            kind = torch.where(sprite, KIND_DECOR, KIND_WALL)
-        else:
-            kind = torch.full_like(zero, KIND_WALL)
-        rec(torch.maximum(top1, row_of(phigh, safe_t, cyw3, shear3)),
-            torch.minimum(bot1, row_of(plow, safe_t, cyw3, shear3)),
-            kind, p0=uu, ab=tuple(col(c0 + P_AB + j) for j in range(4)),
-            light=col(c0 + P_LIGHT), w=t, t1=col(c0 + P_T1), t2=col(c0 + P_T2),
-            low=plow, high=phigh, masked=masked.to(torch.float32),
-            cbase=remap_cb(col(c0 + P_CB), col(c0 + P_CID)), ok=live & pe)
+            def col(c):
+                return vals[..., c]
 
-    # Masked alpha words: one texture column per crossing and screen column.
-    c0m = PIECE0 + PIECE_C
-    uu_m = col(c0m + P_A) + col(c0m + P_B) * uf
-    tsx_m, ax_m = col(c0m + P_AB + 2), col(c0m + P_AB)
-    aw = pt["alpha_words"]  # (2*wc, n_words)
-    wc = aw.shape[0] // 2
-    u1 = torch.remainder(uu_m, torch.where(tsx_m == 0.0, 1.0, tsx_m)) + ax_m
-    x_t = torch.remainder(to_i32(torch.floor(u1)), wc)
-    col_idx = x_t + torch.where(sprite, wc, 0)
-    words = aw[col_idx.long()].permute(0, 1, 3, 2).contiguous()  # (B, K, n_words, W)
+        records = build_records(col, t, uf, live, top, bot, cyw, row_shear, p11, H,
+                                shifted_cb(shift))
+        words = alpha_words(col, uf, aw)
 
-    records = torch.stack(recs, dim=2).reshape(B, K_eff * RECORDS_PER_CROSSING, NCH, W)
     aux = dict(cam=cam, d=d, sy=sy_, cy=cy_, sp=sp_, cp=cp_, shear=shear_ndc,
                overflow=overflow)
     if gather_meta is not None:
