@@ -50,10 +50,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
      torch.sort(td, dim=2, stable=True) its plain version makes: on :test:
      at 256 x 320x200 after the bench's warm-up (`walk_*`), at config 5's
      MAP01 member (`walk_*_bank`), at entry()'s 2 envs (`walk_*_entry`),
-     W1 alone on :texstress: (`walk_cross_texstress`, the big-level
-     walk); printed only, :test: under portal_compact_crossings=1 with
-     yaws spread over the circle (envs overflow, and others do not) and
-     :doom2: MAP02.
+     on :texstress: (`walk_*_texstress`, the big-level walk, W2 reading
+     B4's selection); printed only, :test: under
+     portal_compact_crossings=1 with yaws spread over the circle (envs
+     overflow, and others do not), :doom2: MAP02 and :texstress: at
+     portal_global_segs_max=1024 (W2 moving the texel bases into the
+     active set).
   4. tools: the kernels of the port's two instruments, which no main-path
      segment runs (their launch counts there stay 0). B10
      (tools/onehotbench.py): ldg, smem and copy bitwise against the plain
@@ -328,8 +330,8 @@ KERNELS = {
     # walk (tpu_doom/render/portal.py:_walk_env, no pl.pallas_call); W1
     # replaces its crossings, sort and clip window, W2 its compaction,
     # records and alpha words. On :test: at 256 x 320x200, at config 5's
-    # MAP01 member (1,024 envs at 640x400), at entry()'s 2 envs at 64x40;
-    # W1 also on :texstress: (the big-level walk).
+    # MAP01 member (1,024 envs at 640x400), at entry()'s 2 envs at 64x40,
+    # and on :texstress: (the big-level walk, W2 reading B4's selection).
     "walk_cross": dict(
         source="tpu_doom_torch/csrc/walk.cu",
         replaces="tpu_doom/render/portal.py:795"),
@@ -351,6 +353,9 @@ KERNELS = {
     "walk_cross_texstress": dict(
         source="tpu_doom_torch/csrc/walk.cu",
         replaces="tpu_doom/render/portal.py:795"),
+    "walk_records_texstress": dict(
+        source="tpu_doom_torch/csrc/walk.cu",
+        replaces="tpu_doom/render/portal.py:930"),
     # The instruments' kernels (phase 4); no main-path segment launches them.
     "onehot_lookup": dict(
         source="tpu_doom_torch/csrc/onehot_lookup.cu",
@@ -374,7 +379,10 @@ SWEEP_TRI_OPS = 300   # one swept-sphere vs triangle test (face, 3 vertex, 3 edg
 SHADE_PIXEL_OPS = 60  # one pixel's shade (texel address, light row)
 CROSS_TEST_OPS = 19   # one ray against one walk row: denom, t, u, the validity tests
 RECORD_OPS = 64       # one kept crossing's five records and alpha word in one column
-WALK = ("walk_cross", "walk_records")  # the walk's kernels (W1 only on big levels)
+WALK = ("walk_cross", "walk_records")  # the walk's kernels, both on every level
+# B4's selected columns W2 reads: all 74 but the two back heights (the
+# clip window's, W1's) and the three pieces' unmasked-texture flags.
+W2_SEL_COLS = 69
 
 
 class SmokeFailure(Exception):
@@ -1050,31 +1058,31 @@ def same_bits(a, b):
 
 
 def walk_args(pscene, scene, cfg, width, height, state):
-    """The arguments the walk of `state` gives W1 and W2 (None where W2
-    does not run: the big-level walk)."""
+    """The arguments the walk of `state` gives W1 and W2."""
     from tpu_doom_torch.render import portal as P
 
     act = P.active_segs(pscene, cfg)
     with captured(P, "walk_cross") as cross, captured(P, "walk_records") as recs:
         P.walk(pscene, scene, cfg, width, height, int(cfg.portal_crossings), state,
                active_segs=act)
-    require(len(cross) == 1 and len(recs) <= 1, "the walk called W1 or W2 more than once")
-    return cross[0], (recs[0] if recs else None)
+    require(len(cross) == 1 and len(recs) == 1, "the walk did not call W1 and W2 once each")
+    return cross[0], recs[0]
 
 
 @torch.no_grad()
 def phase_walk(results, suffix, label, pscene, scene, cfg, width, height, state,
-               records=True, row=True):
-    """W1, and W2 where the walk runs it (`records`), on the arguments the
-    port's walk of `state` gives them, each bitwise against its plain
-    version, timed beside its bound; W1 also beside the one
-    torch.sort(td, dim=2, stable=True) its plain version makes. `row`:
-    kept as the rows `walk_*<suffix>`, else printed only. W1's bound: its
-    inputs (the six prefix columns of the table) and outputs, or
+               row=True, shifted=False):
+    """W1 and W2 on the arguments the port's walk of `state` gives them,
+    each bitwise against its plain version, timed beside its bound; W1
+    also beside the one torch.sort(td, dim=2, stable=True) its plain
+    version makes. `row`: kept as the rows `walk_*<suffix>`, else printed
+    only. `shifted`: W2 must take the active set's texel shift. W1's
+    bound: its inputs (the six prefix columns of the table) and outputs, or
     CROSS_TEST_OPS per (env, column, row); W2's: the kept crossings'
-    W1 outputs, the 32-byte sectors of the table rows they select, the
-    alpha table and the outputs, or RECORD_OPS per kept crossing and
-    column. Returns W2's overflow (None without W2)."""
+    W1 outputs, the 32-byte sectors of the table rows they select (or,
+    where W2 reads B4's selection, its W2_SEL_COLS columns), the alpha
+    table and the outputs, or RECORD_OPS per kept crossing and column.
+    Returns W2's overflow."""
     from tpu_doom_torch.ops.walk import (
         PREFIX_COLS,
         compact_order,
@@ -1086,8 +1094,6 @@ def phase_walk(results, suffix, label, pscene, scene, cfg, width, height, state,
     )
 
     cross, recs = walk_args(pscene, scene, cfg, width, height, state)
-    require((recs is not None) == records,
-            f"walk {label}: W2 ran {recs is not None}, expected {records}")
     out = results if row else {f"walk_cross{suffix}": {}, f"walk_records{suffix}": {}}
     got, want = walk_cross(*cross), walk_cross_ref(*cross)
     torch.cuda.synchronize()
@@ -1111,9 +1117,7 @@ def phase_walk(results, suffix, label, pscene, scene, cfg, width, height, state,
            B * W * SD * CROSS_TEST_OPS)
     out["walk_cross" + suffix]["sort_ms"] = sort_ms
     del got
-    if recs is None:
-        return None
-    t, uf, idx, live, top, bot, mask, ovf_in, table, aw, cyw, shear, p11, H, kc, shift = recs
+    t, uf, idx, live, top, bot, mask, ovf_in, table, aw, cyw, shear, p11, H, kc, shift, sel = recs
     got, want = walk_records(*recs), walk_records_ref(*recs)
     torch.cuda.synchronize()
     same = all(same_bits(a, b) for a, b in zip(got, want))
@@ -1125,11 +1129,16 @@ def phase_walk(results, suffix, label, pscene, scene, cfg, width, height, state,
     kept = idx if not kc else torch.gather(
         idx, 1, compact_order(mask, K, kc)[:, :, None].expand(-1, -1, W))
     ns = kept.shape[1]
-    n_bytes = (nbytes(*got, mask, ovf_in, aw, cyw, shear) + 21 * B * ns * W
-               + row_sector_bytes(kept.reshape(B, -1), table)
+    attrs = (row_sector_bytes(kept.reshape(B, -1), table) if sel is None
+             else B * W2_SEL_COLS * ns * W * sel.element_size())
+    n_bytes = (nbytes(*got, mask, ovf_in, aw, cyw, shear) + 21 * B * ns * W + attrs
                + (0 if shift is None else nbytes(shift)))
     overflow = got[2]
-    print(f"[kernel] W2 walk_records {label}: kc {kc}, records {tuple(got[0].shape)},"
+    require((shift is not None) == shifted,
+            f"walk {label}: W2 took a texel shift {shift is not None}, expected {shifted}")
+    src = "the table" if sel is None else f"B4's selection {tuple(sel.shape)}"
+    print(f"[kernel] W2 walk_records {label}: from {src}, kc {kc}, records"
+          f" {tuple(got[0].shape)},"
           f" words {tuple(got[1].shape)}, {int(overflow.sum())} of {B} envs overflow:"
           f" bitwise equal {same} (ceiling 0), max_abs_err {err}; {ms:.4f} ms ({b2b:.4f}"
           f" back to back) vs plain {plain:.4f} ms")
@@ -1218,8 +1227,7 @@ def phase_kernels_texstress(results):
     require(same, f"B1 on {TEX_WAD} disagrees with its plain version")
     del rows, st8
     phase_walk(results, "_texstress", f"{TEX_WAD} {B_MAIN} x {W_MAIN}x{H_MAIN}",
-               sim.portal_scene(), sim.scene, sim.config, W_MAIN, H_MAIN, state,
-               records=False)
+               sim.portal_scene(), sim.scene, sim.config, W_MAIN, H_MAIN, state)
     with captured(P, "select_rows") as calls:
         args, kw, _ = P.fused_inputs(sim.portal_scene(), sim.scene, sim.config,
                                      W_MAIN, H_MAIN, state)
@@ -1266,6 +1274,9 @@ def phase_kernels_texstress(results):
     sim = make_sim(wad_file=TEX_WAD, portal_global_segs_max=TEX_CAP)
     require(P.active_segs(sim.portal_scene(), sim.config) > 0,
             "the active-set path is not engaged at the lowered cap")
+    phase_walk(results, "_texstress_act", f"{TEX_WAD} {B_MAIN} x {W_MAIN}x{H_MAIN}"
+               f" portal_global_segs_max={TEX_CAP}", sim.portal_scene(), sim.scene,
+               sim.config, W_MAIN, H_MAIN, state, row=False, shifted=True)
     with captured(P, "scatter_live") as sl, captured(P, "gather_cells") as gc:
         args, kw, overflow = P.fused_inputs(
             sim.portal_scene(), sim.scene, sim.config, W_MAIN, H_MAIN, state)
@@ -2196,11 +2207,10 @@ def phase_main(results):
         del fsim, fstate
 
     for seg, extra, needed in (
-            ("texstress", {}, ("player_move", "render_portal_fused", "select_rows",
-                               "walk_cross")),
+            ("texstress", {}, ("player_move", "render_portal_fused", "select_rows") + WALK),
             ("texstress_act", dict(portal_global_segs_max=TEX_CAP),
              ("player_move", "render_portal_fused", "select_rows", "scatter_live",
-              "gather_cells", "render_portal_fused_per_env", "walk_cross"))):
+              "gather_cells", "render_portal_fused_per_env") + WALK)):
         sim = make_sim(wad_file=TEX_WAD, **extra)
         state = sim.reset()
         acts = bench_actions(sim, B_MAIN)
@@ -2245,7 +2255,7 @@ def tally(results, segments):
             c[name + "_entry"] = c[name] if at_entry else 0
         for name in WALK:
             c[name + "_bank"] = c[name] if seg in config5 else 0
-        c["walk_cross_texstress"] = c["walk_cross"] if maze else 0
+            c[name + "_texstress"] = c[name] if maze else 0
     totals = {k: sum(c.get(k, 0) for c in segments.values()) for k in results}
     for name, r in results.items():
         require(name in TOOL_KERNELS or totals[name] > 0,
@@ -2695,7 +2705,7 @@ def phase_perf_tools():
     del sim, plain
     needed = {"tools_perfcmp": ("player_move", "render_portal_fused") + WALK,
               "tools_stagebudget": ("player_move", "render_portal_fused") + WALK,
-              "tools_fallbackrate": ("player_move", "select_rows", "walk_cross")}
+              "tools_fallbackrate": ("player_move", "select_rows") + WALK}
     for seg, names in needed.items():
         for name in names:
             require(segments[seg].get(name, 0) > 0, f"{seg}: {name} did not run")

@@ -170,16 +170,18 @@ def test_big_walk_kernels_match_plain_versions_on_card(cuda_device):
 
 
 # Walk cases at 64x40 on 4 envs, two of them pitched: wad, config, whether
-# the level takes the small-level walk (W2 runs there only).
+# W2 reads B4's selection (big levels without crossing compaction; else
+# the attribute table).
 WALK_CASES = {
-    "test": (":test:", {}, True),
-    "doom2": (":doom2:", {}, True),
-    "overflow": (":test:", dict(portal_compact_crossings=1), True),
-    "no_compaction": (":test:", dict(portal_compact_crossings=0), True),
-    "crossings12": (":test:", dict(portal_crossings=12), True),
-    "small_active_set": (":test:", dict(portal_global_segs_max=64), True),
-    "big": (":texstress:10x16", {}, False),
-    "big_cull": (":texstress:", dict(portal_visible_segs=208), False),
+    "test": (":test:", {}, False),
+    "doom2": (":doom2:", {}, False),
+    "overflow": (":test:", dict(portal_compact_crossings=1), False),
+    "no_compaction": (":test:", dict(portal_compact_crossings=0), False),
+    "crossings12": (":test:", dict(portal_crossings=12), False),
+    "small_active_set": (":test:", dict(portal_global_segs_max=64), False),
+    "big": (":texstress:10x16", {}, True),
+    "big_cull": (":texstress:", dict(portal_visible_segs=208), True),
+    "big_select_off": (":texstress:10x16", dict(portal_select_rows="off"), False),
 }
 
 
@@ -227,23 +229,22 @@ def _walk_calls(case, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(WALK_CASES))
 def test_walk_kernels_match_plain_versions_on_card(cuda_device, case):
-    """On the card: W1 bit-equal to its plain version on every walk
-    branch, W2 on the small-level one, and the walk on the card bit-equal
-    to the plain walk on the CPU (records, words, overflow)."""
+    """On the card: W1 and W2 bit-equal to their plain versions on every
+    walk branch (W2 reading the table or B4's selection), and the walk on
+    the card bit-equal to the plain walk on the CPU (records, words,
+    overflow)."""
     from tpu_doom_torch.ops import walk_cross, walk_cross_ref, walk_records, walk_records_ref
     from tpu_doom_torch.render import portal as P
     from tpu_doom_torch.sim.state import SimState
 
     calls, (rec, words, aux), sim, s, act = _walk_calls(case, cuda_device)
-    small = WALK_CASES[case][2]
-    assert len(calls["walk_cross"]) == 1
-    assert len(calls["walk_records"]) == int(small)
+    assert len(calls["walk_cross"]) == 1 and len(calls["walk_records"]) == 1
     got, want = walk_cross(*calls["walk_cross"][0]), walk_cross_ref(*calls["walk_cross"][0])
     assert all(_bitwise(x, y) for x, y in zip(got, want))
-    if small:
-        args = calls["walk_records"][0]
-        got, want = walk_records(*args), walk_records_ref(*args)
-        assert all(_bitwise(x, y) for x, y in zip(got, want))
+    args = calls["walk_records"][0]
+    assert (args[16] is not None) == WALK_CASES[case][2]  # sel, B4's selection
+    got, want = walk_records(*args), walk_records_ref(*args)
+    assert all(_bitwise(x, y) for x, y in zip(got, want))
     cpu = TorchSim(sim.config, "cpu")
     rc, wc, auxc = P.walk(cpu.portal_scene(), cpu.scene, cpu.config, 64, 40,
                           int(cpu.config.portal_crossings),
@@ -252,6 +253,23 @@ def test_walk_kernels_match_plain_versions_on_card(cuda_device, case):
     assert torch.equal(aux["overflow"].cpu(), auxc["overflow"])
     if case == "overflow":
         assert bool(aux["overflow"].any())
+
+
+@pytest.mark.cuda
+def test_walk_cross_rays_not_a_sweep_on_card(cuda_device):
+    """W1's per-warp cull assumes the walk's rays (a sweep of fwd + right *
+    x); on rays that are not one it culls nothing and stays bit-equal to
+    its plain version (random rays, and the walk's rays reversed)."""
+    from tpu_doom_torch.ops import walk_cross, walk_cross_ref
+
+    calls, *_ = _walk_calls("test", cuda_device)
+    cross = list(calls["walk_cross"][0])
+    g = torch.Generator().manual_seed(0)
+    for d in (torch.randn(cross[3].shape, generator=g).to(cuda_device),
+              cross[3].flip(1).contiguous()):
+        cross[3] = d
+        got, want = walk_cross(*cross), walk_cross_ref(*cross)
+        assert all(_bitwise(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.cuda

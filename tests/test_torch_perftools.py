@@ -21,6 +21,7 @@ Tolerances: all exact.
     `bench.time_ticks`' over the same ticks from reset, bitwise.
 (d) `measure_all`: its first five rows are tools/measure_all.sh's `run`
     lines; a failing, silent or timed-out row makes it exit 1.
+(e) `abrun`'s command line: no set named runs every set, in SETS' order.
 """
 
 import dataclasses
@@ -314,3 +315,13 @@ def test_measure_all_exit_code(fault, monkeypatch, capsys):
     else:
         assert rc == 1
         assert "1 row(s) failed: BENCH_LOOKY=1 python3 -m tpu_doom_torch.bench" in err
+
+
+def test_abrun_parse_defaults_to_every_set():
+    """(e) abrun with no set named runs all of them; named sets are kept."""
+    from tpu_doom_torch.tools import abrun
+
+    assert abrun.parse(["--other", "p", "--out", "o"]).sets == list(abrun.SETS)
+    assert abrun.parse(["--other", "p", "--out", "o", "profile"]).sets == ["profile"]
+    with pytest.raises(SystemExit):
+        abrun.parse(["--other", "p", "--out", "o", "nonsense"])

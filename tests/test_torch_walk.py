@@ -22,7 +22,12 @@ Cases (64x40, K = 24, crossing compaction at its AUTO 8 unless stated):
 * a pose whose ray meets a room corner: two crossings of equal depth in
   one column, kept in row order;
 * `portal_compact_crossings=2`: the envs with more live crossings
-  overflow, the one with two does not.
+  overflow, the one with two does not;
+* the big-level walk (more than 192 walk rows: the visible-seg cull,
+  then W2 on every crossing) on `:texstress:10x16` at the defaults, where
+  W2 reads kernel B4's selection (JAX's walk selects through
+  `select_rows_pallas` in interpret mode), and under
+  `portal_compact_crossings=4`, where W2 compacts and reads the table.
 """
 
 import functools
@@ -37,6 +42,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, K = 64, 40, 24
 BANK5 = ((":test:", 0), (":test:", 1), (":doom2:", 0), (":doom2:", 1))
+BIG_POSES = [(None, None, 0.0, 0.0, 0.0), (None, None, 2.2, 0.2, 0.5),
+             (None, None, -1.3, 0.0, 1.0), (None, None, 0.9, -0.3, 2.0)]
 # group -> (wad, level, config overrides, poses: (x, z, yaw, pitch,
 # time)); a pose's height is the level's start height, x None keeps the
 # start position. "bank" walks config 5's member `level` of the bank
@@ -54,11 +61,16 @@ GROUPS = {
     "overflow": (":test:", 0, dict(portal_compact_crossings=2), [
         (-2.2, -8.8, 0.9, 0.0, 0.0), (-3.5, -9.0, 0.0, 0.2, 0.0),
         (-2.0, -7.9, -3.1, 0.0, 0.0)]),
+    "texstress": (":texstress:10x16", 0, {}, BIG_POSES),
+    "texstress_compact": (":texstress:10x16", 0, dict(portal_compact_crossings=4), BIG_POSES),
 }
+SELECT = {"texstress": "interpret"}  # JAX's walk selects through B4's Pallas kernel
 # case -> (group, its envs)
 CASES = {"test": ("test", slice(0, 3)), "few_crossings": ("test", slice(3, 4)),
          "tie": ("test", slice(4, 5)), "doom2": ("doom2", slice(None)),
-         "bank": ("bank", slice(None)), "overflow": ("overflow", slice(None))}
+         "bank": ("bank", slice(None)), "overflow": ("overflow", slice(None)),
+         "texstress": ("texstress", slice(None)),
+         "texstress_compact": ("texstress_compact", slice(None))}
 TIE_COLUMN = 31  # the tie pose's column through the corner
 
 
@@ -116,7 +128,8 @@ def _jax_walks(out_path):
                        time=jnp.asarray([p[4] for p in poses], jnp.float32))
         n_cross = int(cfg.portal_crossings)
         rec, words, aux = jax.jit(jax.vmap(
-            lambda p, y, pi, o, t: _walk_env(ps, scene, cfg, W, H, n_cross, p, y, pi, o, t)
+            lambda p, y, pi, o, t: _walk_env(ps, scene, cfg, W, H, n_cross, p, y, pi, o, t,
+                                             select_kernel=SELECT.get(case, ""))
         ))(s.pos, s.yaw, s.pitch, s.object_offset, s.time)
         out[f"{case}/records"] = np.asarray(rec)
         out[f"{case}/words"] = np.asarray(words)
@@ -141,7 +154,8 @@ def jax_walks(tmp_path_factory):
 @functools.lru_cache(maxsize=None)
 def _port_walk(case, path):
     """The port's walk of a group's states (saved at path) on the CPU,
-    and W1's outputs."""
+    W1's outputs, the portal scene and the arguments the walk gave W1 and
+    W2."""
     from tpu_doom_torch.ops import walk as Wk
     from tpu_doom_torch.render import portal as P
     from tpu_doom_torch.sim.state import SimState
@@ -163,25 +177,30 @@ def _port_walk(case, path):
         sim = DoomSim(cfg, "cpu")
         scene, pt, cfg = sim.scene, sim.portal_scene(), sim.config
     state = SimState(*(torch.as_tensor(data[f"{case}/state/{f}"]) for f in SimState._fields))
-    calls = []
-    orig = P.walk_cross
+    calls = {"walk_cross": [], "walk_records": []}
+    origs = {n: getattr(P, n) for n in calls}
 
-    def spy(*args):
-        calls.append(args)
-        return orig(*args)
+    def spy(name):
+        def f(*args):
+            calls[name].append(args)
+            return origs[name](*args)
+        return f
 
-    P.walk_cross = spy
     try:
+        for n in calls:
+            setattr(P, n, spy(n))
         rec, words, aux = P.walk(pt, scene, cfg, W, H, int(cfg.portal_crossings), state)
     finally:
-        P.walk_cross = orig
-    return rec, words, aux, Wk.walk_cross_ref(*calls[0]), pt
+        for n, f in origs.items():
+            setattr(P, n, f)
+    cross, recs = calls["walk_cross"][0], calls["walk_records"][0]
+    return rec, words, aux, Wk.walk_cross_ref(*cross), pt, cross, recs
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_walk_matches_jax_bitwise(jax_walks, case):
     group, envs = CASES[case]
-    rec, words, aux, cross, pt = _port_walk(group, jax_walks)
+    rec, words, aux, cross, pt, _, recs = _port_walk(group, jax_walks)
     want = np.load(jax_walks)
     rec, words, overflow = rec[envs], words[envs], aux["overflow"][envs]
     t, _, idx, live, *_ = (x[envs] for x in cross)
@@ -207,6 +226,60 @@ def test_walk_matches_jax_bitwise(jax_walks, case):
         assert overflow[:2].all() and not overflow[2]
     if case in ("test", "doom2"):
         assert (want[f"{group}/state/pitch"][envs] != 0.0).any()
+    if case.startswith("texstress"):  # the big-level walk: W2 from B4's selection or the table
+        sel = case == "texstress"
+        assert pt["has_back"].shape[0] > 192 and rec.shape[1] == 5 * (K if sel else 4)
+        assert (recs[16] is not None) == sel and (recs[8] is None) == sel
+
+
+def test_w2_selection_form_matches_table_form(jax_walks):
+    """W2's plain version from B4's selection (the big-level walk's form)
+    gives the same bits as from the table on the same crossings, with and
+    without compaction."""
+    from tpu_doom_torch.ops import walk as Wk
+
+    *_, cross, recs = _port_walk("texstress", jax_walks)
+    table = cross[4]  # the (culled) attribute table W1 read
+    assert recs[8] is None and recs[16] is not None
+    for kc in (0, 4):
+        args = list(recs[:16])
+        args[14] = kc
+        from_sel = Wk.walk_records_ref(*args, sel=recs[16])
+        args[8] = table
+        from_table = Wk.walk_records_ref(*args)
+        assert from_sel[0].shape[1] == 5 * (kc or K)
+        for a, b in zip(from_sel, from_table):
+            a, b = a.numpy(), b.numpy()
+            np.testing.assert_array_equal(a.view(np.int32) if a.dtype == np.float32 else a,
+                                          b.view(np.int32) if b.dtype == np.float32 else b)
+
+
+def test_explicit_compaction_overflow_formula(jax_walks):
+    """On a big level under explicit crossing compaction W2 does the
+    compaction: an env overflows where it did before W2 (the visible-seg
+    cull), or where more than kc crossings are live in any column, which
+    is the formula the walk applied itself before W2 took the big levels."""
+    from tpu_doom_torch.ops.walk import mask_bits_to_bool
+
+    rec, words, aux, cross, pt, _, recs = _port_walk("texstress_compact", jax_walks)
+    mask, ovf_in, kc = recs[6], recs[7], recs[14]
+    assert kc == 4 and recs[8] is not None and recs[16] is None
+    want = ovf_in | (mask_bits_to_bool(mask, K).sum(dim=1) > kc)
+    assert torch.equal(aux["overflow"], want)
+    assert bool(want.any()) and not bool(want.all())
+
+
+def test_walkprof_stamps_every_phase_of_w1():
+    """tools/walkprof's clock-stamped copy of csrc/walk.cu finds each of
+    its anchors in W1 once (it refuses to build otherwise), and the tool
+    needs a card."""
+    from tpu_doom_torch.tools import walkprof
+
+    src = walkprof.stamped_source()
+    assert src.count("STAMP(") == len(walkprof.STAMPS) + 1  # the macro's own definition
+    assert 'extern "C" int tdt_walk_stamps' in src
+    if not torch.cuda.is_available():
+        assert walkprof.main([]) == 1
 
 
 if __name__ == "__main__":

@@ -82,10 +82,11 @@ SIGNATURES = {
     # p1, p2, o, d, table, cyw, shear, t, u, idx, live, top, bot, mask,
     # B, SD, C, W, K, near, far, p11, H, stream (W1)
     "tdt_walk_cross": [_P] * 14 + [_I] * 5 + [_F] * 4 + [_P],
-    # t, u, idx, live, top, bot, mask, ovf_in, table, aw, cyw, shear, shift,
-    # records, words, ovf_out, B, SD, C, W, K, kc, n_words, wc, n_cells,
+    # t, u, idx, live, top, bot, mask, ovf_in, table (or null), sel (or
+    # null), aw, cyw, shear, shift, records, words, ovf_out, B, SD, C, W,
+    # K, kc, n_words, wc, n_cells,
     # p11, H, stream (W2)
-    "tdt_walk_records": [_P] * 16 + [_I] * 9 + [_F] * 2 + [_P],
+    "tdt_walk_records": [_P] * 17 + [_I] * 9 + [_F] * 2 + [_P],
     # out (int*): the device's opt-in shared memory per block, bytes
     "tdt_smem_optin": [_P],
     # stream (capturing), body stream, pred (bool*), handle out (u64*):

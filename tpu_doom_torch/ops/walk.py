@@ -16,18 +16,19 @@ vertical clip window front to back over them (the cummax / cummin
 prefix). Outputs (B, K, W): depth t, u, row id, live, top, bot; and per
 env the bit mask of crossings live in any column.
 
-W2 `walk_records` (csrc/walk.cu `walk_records_kernel`): the small-level
-walk's crossing compaction (the first `kc` crossings live in any
-column, from W1's mask), then per kept crossing the five span records
-(B, kc * 5, 16, W) and the masked family's alpha words (B, kc, n_words,
-W), and the env's overflow.
+W2 `walk_records` (csrc/walk.cu `walk_records_kernel`): the crossing
+compaction (the first `kc` crossings live in any column, from W1's
+mask), then per kept crossing the five span records (B, kc * 5, 16, W)
+and the masked family's alpha words (B, kc, n_words, W), and the env's
+overflow. It reads each crossing's attributes from the attribute table
+at the crossing's row, or, given kernel B4's selection of them (the
+big-level walk without compaction), from that: the same values.
 
 The plain versions are the port's eager walk, factored out unchanged:
-`render/portal.py:walk` calls the wrappers, which run the plain version
-for CPU tensors and launch the kernel (or raise) for CUDA tensors. The
-big-level walk (more than SMALL_LEVEL_ROWS rows) takes W1 and keeps its
-record build (B4 / B6 / B5) in `render/portal.py`, through the same
-`build_records` and `alpha_words` as W2's plain version.
+`render/portal.py:walk` calls the wrappers on every level, which run the
+plain version for CPU tensors and launch the kernel (or raise) for CUDA
+tensors. `build_records`, `alpha_words` and `shifted_cb` are W2's plain
+version's parts.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from .._build import check, load
 from .._numerics import to_i32
 
 BIG_T = 1e30  # finite depth sentinel for invalid crossings
-SMALL_LEVEL_ROWS = 192  # S+D walk rows the small-level branch covers
+SMALL_LEVEL_ROWS = 192  # S+D walk rows of a small level (no cull, AUTO compaction 8)
 KMAX = 32  # crossings per column W1 keeps at most (its mask is 32 bits)
 
 # Record channel layout (same as the JAX package).
@@ -208,8 +209,7 @@ walk_cross.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The records and alpha words of crossings (W2's plain version and the
-# big-level walk).
+# The records and alpha words of crossings (W2's plain version).
 # ---------------------------------------------------------------------------
 
 
@@ -341,22 +341,26 @@ def compact_order(mask, K: int, kc: int):
 
 
 # ---------------------------------------------------------------------------
-# W2: compaction, records, alpha words (the small-level walk).
+# W2: compaction, records, alpha words (every level).
 # ---------------------------------------------------------------------------
 
 
 def walk_records_ref(t, uf, idx, live, top, bot, mask, overflow, table, aw, cyw,
-                     row_shear, p11: float, H: int, kc: int, shift=None):
+                     row_shear, p11: float, H: int, kc: int, shift=None, sel=None):
     """Plain version of W2: W1's outputs (t, uf, idx, live, top, bot (B,
-    K, W), mask (B,)), the incoming overflow (B,) bool, the attribute
-    table (B, SD, C), the alpha columns aw (2 * wc, n_words) i32, cyw and
+    K, W), mask (B,)), the incoming overflow (B,) bool, the crossings'
+    attributes, the alpha columns aw (2 * wc, n_words) i32, cyw and
     row_shear (B,) -> (records (B, K' * 5, 16, W), words (B, K', n_words,
-    W) i32, overflow (B,) bool). kc > 0 compacts to the first kc
-    crossings live in any column (K' = min(kc, K)), and an env with more
-    such crossings overflows; kc = 0 keeps all K. shift (B, n_cells), on
-    the active-set path, moves each texel base into the env's active
-    table: cid < 0 -> 0, else cbase + shift[cid]."""
+    W) i32, overflow (B,) bool). The attributes come from the table (B,
+    SD, C) at row idx, or, given sel (B, C, K * W), from B4's selection
+    of them (crossing (k, w)'s column c at sel[b, c, k * W + w]; table is
+    then not read): the same values either way. kc > 0 compacts to the
+    first kc crossings live in any column (K' = min(kc, K)), and an env
+    with more such crossings overflows; kc = 0 keeps all K. shift (B,
+    n_cells), on the active-set path, moves each texel base into the
+    env's active table: cid < 0 -> 0, else cbase + shift[cid]."""
     B, K, W = t.shape
+    ordk = None
     if kc:
         live_k = mask_bits_to_bool(mask, K)
         overflow = overflow | (live_k.sum(dim=1) > kc)
@@ -364,10 +368,19 @@ def walk_records_ref(t, uf, idx, live, top, bot, mask, overflow, table, aw, cyw,
         g = ordk[:, :, None].expand(-1, -1, W)
         t, uf, idx, live, top, bot = (torch.gather(x, 1, g)
                                       for x in (t, uf, idx, live, top, bot))
-    vals = select_cols(table, slice(None), idx.long())  # (B, K', W, C)
+    if sel is None:
+        vals = select_cols(table, slice(None), idx.long())  # (B, K', W, C)
 
-    def col(c):
-        return vals[..., c]
+        def col(c):
+            return vals[..., c]
+    else:
+        C = sel.shape[1]
+        vals = sel.reshape(B, C, K, W)
+        if ordk is not None:
+            vals = torch.gather(vals, 2, ordk[:, None, :, None].expand(-1, C, -1, W))
+
+        def col(c):
+            return vals[:, c]
 
     records = build_records(col, t, uf, live, top, bot, cyw, row_shear, p11, H,
                             shifted_cb(shift))
@@ -375,33 +388,37 @@ def walk_records_ref(t, uf, idx, live, top, bot, mask, overflow, table, aw, cyw,
 
 
 def walk_records(t, uf, idx, live, top, bot, mask, overflow, table, aw, cyw,
-                 row_shear, p11: float, H: int, kc: int, shift=None):
+                 row_shear, p11: float, H: int, kc: int, shift=None, sel=None):
     """W2 for CUDA tensors, its plain version for CPU tensors (see
-    `walk_records_ref`)."""
+    `walk_records_ref`): from the table, or from B4's selection where sel
+    is given (table may then be None)."""
     if t.device.type == "cpu":
         return walk_records_ref(t, uf, idx, live, top, bot, mask, overflow, table, aw,
-                                cyw, row_shear, p11, H, kc, shift)
+                                cyw, row_shear, p11, H, kc, shift, sel)
     if t.device.type != "cuda":
         raise ValueError(f"walk_records: unsupported device {t.device}")
     B, K, W = t.shape
-    SD, C = table.shape[1], table.shape[2]
+    src = table if sel is None else sel
+    SD, C = (table.shape[1], table.shape[2]) if sel is None else (0, sel.shape[1])
     n_words = aw.shape[1]
     if not 1 <= K <= KMAX or kc < 0:
         raise ValueError(f"walk_records: K = {K}, kc = {kc}")
     if (any(x.shape != (B, K, W) for x in (uf, idx, live, top, bot))
-            or mask.shape != (B,) or overflow.shape != (B,) or table.shape[0] != B
-            or C < TABLE_COLS or aw.dim() != 2 or aw.shape[0] % 2
+            or mask.shape != (B,) or overflow.shape != (B,) or src.dim() != 3
+            or src.shape[0] != B or C < TABLE_COLS
+            or (sel is not None and sel.shape[2] != K * W)
+            or aw.dim() != 2 or aw.shape[0] % 2
             or cyw.shape != (B,) or row_shear.shape != (B,)
             or (shift is not None and shift.shape[0] != B)):
         raise ValueError("walk_records: bad shapes")
     if ((idx.dtype, live.dtype, mask.dtype, overflow.dtype, aw.dtype)
             != (torch.int32, torch.bool, torch.int32, torch.bool, torch.int32)
             or any(x.dtype != torch.float32
-                   for x in (t, uf, top, bot, table, cyw, row_shear))
+                   for x in (t, uf, top, bot, src, cyw, row_shear))
             or (shift is not None and shift.dtype != torch.float32)):
         raise ValueError("walk_records: bad dtypes")
-    ins = [x.contiguous() for x in (t, uf, idx, live, top, bot, mask, overflow, table,
-                                    aw, cyw, row_shear)]
+    ins = [x.contiguous() for x in (t, uf, idx, live, top, bot, mask, overflow)]
+    src, aw, cyw, row_shear = (x.contiguous() for x in (src, aw, cyw, row_shear))
     if shift is not None:
         shift = shift.contiguous()
     dev = t.device
@@ -414,6 +431,8 @@ def walk_records(t, uf, idx, live, top, bot, mask, overflow, table, aw, cyw,
         return records, words, overflow.clone()
     check(load().tdt_walk_records(
         *(x.data_ptr() for x in ins),
+        src.data_ptr() if sel is None else 0, 0 if sel is None else src.data_ptr(),
+        aw.data_ptr(), cyw.data_ptr(), row_shear.data_ptr(),
         0 if shift is None else shift.data_ptr(),
         records.data_ptr(), words.data_ptr(), ovf.data_ptr(),
         B, SD, C, W, K, kc, n_words, aw.shape[0] // 2,

@@ -17,18 +17,18 @@ here they are indexed loads. `vmap` becomes the leading env dimension:
 per-seg tables are (B, SD, C), crossings (B, K, W). The per-(env, row)
 attribute table is built here with tensor ops; kernel W1
 (`ops.walk.walk_cross`) then crosses every column's ray with every row,
-keeps the K nearest and runs the clip window, and on small levels kernel
-W2 (`ops.walk.walk_records`) compacts the crossings and writes the span
-records and alpha words.
+keeps the K nearest and runs the clip window, and kernel W2
+(`ops.walk.walk_records`) compacts the crossings and writes the span
+records and alpha words, on every level.
 
 Big levels (more than 192 walk rows, segs + sprites, at the shipped
 defaults) take the big-level walk:
 * the visible-seg cull (`portal_visible_segs`, on any level where
   0 < SV < SD): a conservative per-row test keeps at most SV rows per env
   before the crossing math; envs with more visible rows overflow;
-* the records built here with tensor ops, their attributes selected
-  through kernel B4 (`ops.raster.select_rows`) when crossing compaction
-  is off;
+* when crossing compaction is off, kernel B4 (`ops.raster.select_rows`)
+  selects every attribute column at every crossing in one pass, and W2
+  reads that selection instead of the table;
 * the active-set texel path when the compact texel table exceeds
   `portal_global_segs_max`: per-seg live counts (kernel B6
   `scatter_live` with the select, a scatter-add otherwise) mark the
@@ -55,17 +55,7 @@ from ..ops.raster import (
     select_rows,
     shade_portal,
 )
-from ..ops.walk import (
-    SMALL_LEVEL_ROWS,
-    alpha_words,
-    build_records,
-    compact_order,
-    mask_bits_to_bool,
-    select_cols,
-    shifted_cb,
-    walk_cross,
-    walk_records,
-)
+from ..ops.walk import SMALL_LEVEL_ROWS, compact_order, walk_cross, walk_records
 from ..sim.lights import light_table_u8
 from .camera import tan_f32
 from .raster import ANIM_FPS, anim_atlas_uv, render_frames, sky_x_texel, sky_y_texel
@@ -584,31 +574,29 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
         p1, p2, o, d, table, cyw, row_shear, pcfg.near, pcfg.far, p11, H, K)
 
     # --- records and alpha words of the first K_c crossings live in any
-    # column (crossing compaction; all K without it): W2 on small levels.
+    # column (crossing compaction; all K without it): W2 on every level.
     K_c = compact_crossings(cfg, SD_full)
     kc = K_c if 0 < K_c < n_cross else 0
-    aw = pt["alpha_words"]
-    small = SD_full <= SMALL_LEVEL_ROWS
     # On big levels without crossing compaction, kernel B4 selects every
-    # attribute column at every crossing in one pass.
-    use_sel = cfg.portal_select_rows != "off" and K_c == 0 and not small
+    # attribute column at every crossing in one pass, and W2 reads that.
+    use_sel = (cfg.portal_select_rows != "off" and K_c == 0
+               and SD_full > SMALL_LEVEL_ROWS)
     idx_flat = idx.reshape(B, K * W) if use_sel else None
-    kept = (t, uf, idx, live, top, bot)
-    if kc and (active_segs or not small):
-        g = compact_order(mask, K, kc)[:, :, None].expand(-1, -1, W)
-        kept = tuple(torch.gather(x, 1, g) for x in kept)
-    if kc and not small:
-        overflow = overflow | (mask_bits_to_bool(mask, K).sum(dim=1) > kc)
 
     # --- active-set allocation (texel tables above portal_global_segs_max).
     shift = gather_meta = None
     if active_segs:
-        live_f = kept[3].to(torch.float32).reshape(B, -1)
+        # The seg-live counts take the compacted crossings' liveness.
+        kept_idx, kept_live = idx, live
+        if kc:
+            g = compact_order(mask, K, kc)[:, :, None].expand(-1, -1, W)
+            kept_idx, kept_live = torch.gather(idx, 1, g), torch.gather(live, 1, g)
+        live_f = kept_live.to(torch.float32).reshape(B, -1)
         if use_sel:
             seg_live_f = scatter_live(idx_flat, live_f, SD)
         else:
             seg_live_f = torch.zeros((B, SD), dtype=torch.float32, device=dev)
-            seg_live_f.scatter_add_(1, kept[2].long().reshape(B, -1), live_f)
+            seg_live_f.scatter_add_(1, kept_idx.long().reshape(B, -1), live_f)
         if ordv is not None:
             # Compacted rows home to level rows (ordv's rows are distinct;
             # rows past the visible count are invisible and count 0).
@@ -619,26 +607,10 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
         # Each cell's move of its texel bases into the env's active table.
         shift = (slot_start - pt["cell_gseg0"][None, :]) * 128.0
 
-    if small:
-        records, words, overflow = walk_records(
-            t, uf, idx, live, top, bot, mask, overflow, table, aw, cyw, row_shear,
-            p11, H, kc, shift)
-    else:
-        t, uf, idx, live, top, bot = kept
-        if use_sel:
-            vals_cn = select_rows(idx_flat, table)  # (B, C, K * W)
-
-            def col(c):
-                return vals_cn[:, c].reshape(B, K, W)
-        else:
-            vals = select_cols(table, slice(None), idx.long())  # (B, K_c, W, C)
-
-            def col(c):
-                return vals[..., c]
-
-        records = build_records(col, t, uf, live, top, bot, cyw, row_shear, p11, H,
-                                shifted_cb(shift))
-        words = alpha_words(col, uf, aw)
+    sel = select_rows(idx_flat, table) if use_sel else None  # (B, C, K * W)
+    records, words, overflow = walk_records(
+        t, uf, idx, live, top, bot, mask, overflow, None if use_sel else table,
+        pt["alpha_words"], cyw, row_shear, p11, H, kc, shift, sel)
 
     aux = dict(cam=cam, d=d, sy=sy_, cy=cy_, sp=sp_, cp=cp_, shear=shear_ndc,
                overflow=overflow)

@@ -67,12 +67,21 @@ def run(root: str, env: dict, args, log: str) -> tuple[int, float]:
     return rc, time.perf_counter() - t0
 
 
-def main(argv=None) -> int:
+def parse(argv=None):
+    """The command line -> args; no set named means every set."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="the parent's checkout")
     ap.add_argument("--out", required=True, help="directory for the runs' logs")
-    ap.add_argument("sets", nargs="*", default=list(SETS), choices=list(SETS))
+    # No default on the positional: argparse checks a list default against
+    # the choices as one value, and refuses it.
+    ap.add_argument("sets", nargs="*", choices=list(SETS))
     args = ap.parse_args(argv)
+    args.sets = args.sets or list(SETS)
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse(argv)
     os.makedirs(args.out, exist_ok=True)
     roots = {"parent": os.path.abspath(args.other), "change": ROOT}
     failed = []

@@ -98,8 +98,9 @@ class GameConfig:
     portal_visible_segs: int = -1
     # Attribute select of the walk on big levels. "auto": kernel B4
     # (ops/raster.py:select_rows) selects every attribute column at every
-    # crossing when S+D > 192 and crossing compaction is off; "off":
-    # indexed gathers instead (the same values).
+    # crossing when S+D > 192 and crossing compaction is off, and kernel
+    # W2 builds the records from that selection; "off": W2 reads the
+    # attribute table at each crossing's row instead (the same values).
     portal_select_rows: str = "auto"
     # No effect on the port. The JAX package tiles its TPU render kernel
     # in (portal_tile_h, W) row tiles; B2 and B8 pick their own launch
