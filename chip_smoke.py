@@ -13,8 +13,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      back to back, `ms_b2b`), beside its bound (bytes over 3.35 TB/s or
      f32 operations over 67 TFLOP/s, whichever is larger; B2's and B8's
      bytes are those these inputs need, from the plain version's
-     winners, their scattered table reads (texel, hole byte, colormap)
-     as distinct 32-byte sectors, the unit DRAM moves; B4's the sectors
+     winners, their scattered table reads (texel, hole byte, colormap;
+     B2's sky texels) as distinct 32-byte sectors, the unit DRAM moves,
+     and B2's u8 + bool frames at 2 bytes a pixel; B4's the sectors
      of the rows it selects; B5's each distinct source block once;
      B1's operations the sweeps these inputs need, up to each
      env's first clip substep that is not blocked) and, where one PyTorch
@@ -43,10 +44,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
      points' shapes at 64x40 (`*_entry`): B1 and B2 on entry()'s 2 envs
      after 4 walking ticks, B3 on the CLI's one env under its default
      backend ("auto") after the 21 ticks of its dump-frames pilot.
-     The walk's kernels (the port's own, counterparts of XLA code): W1
+     The walk's kernels (the port's own, counterparts of XLA code): W0
+     (the attribute table and, on big levels, the visible-row cull), W1
      (crossings, K nearest, clip window) and W2 (compaction, records,
      alpha words) on the arguments the port's walk gives them, each
-     bitwise against its plain version, W1 also beside the one
+     bitwise against its plain version (W0's bound: its outputs and the
+     level arrays it reads, each once), W1 also beside the one
      torch.sort(td, dim=2, stable=True) its plain version makes: on :test:
      at 256 x 320x200 after the bench's warm-up (`walk_*`), at config 5's
      MAP01 member (`walk_*_bank`), at entry()'s 2 envs (`walk_*_entry`),
@@ -327,29 +330,42 @@ KERNELS = {
         source="tpu_doom_torch/csrc/peel_resolve.cu",
         replaces="tpu_doom/ops/raster_pallas.py:322"),
     # The walk's kernels: the port's own, counterparts of the XLA-compiled
-    # walk (tpu_doom/render/portal.py:_walk_env, no pl.pallas_call); W1
-    # replaces its crossings, sort and clip window, W2 its compaction,
-    # records and alpha words. On :test: at 256 x 320x200, at config 5's
+    # walk (tpu_doom/render/portal.py:_walk_env, no pl.pallas_call); W0
+    # replaces its attribute table and visible-row cull, W1 its crossings,
+    # sort and clip window, W2 its compaction, records and alpha words. On
+    # :test: at 256 x 320x200, at config 5's
     # MAP01 member (1,024 envs at 640x400), at entry()'s 2 envs at 64x40,
     # and on :texstress: (the big-level walk, W2 reading B4's selection).
+    "walk_table": dict(
+        source="tpu_doom_torch/csrc/walk_table.cu",
+        replaces="tpu_doom/render/portal.py:652"),
     "walk_cross": dict(
         source="tpu_doom_torch/csrc/walk.cu",
         replaces="tpu_doom/render/portal.py:795"),
     "walk_records": dict(
         source="tpu_doom_torch/csrc/walk.cu",
         replaces="tpu_doom/render/portal.py:930"),
+    "walk_table_bank": dict(
+        source="tpu_doom_torch/csrc/walk_table.cu",
+        replaces="tpu_doom/render/portal.py:652"),
     "walk_cross_bank": dict(
         source="tpu_doom_torch/csrc/walk.cu",
         replaces="tpu_doom/render/portal.py:795"),
     "walk_records_bank": dict(
         source="tpu_doom_torch/csrc/walk.cu",
         replaces="tpu_doom/render/portal.py:930"),
+    "walk_table_entry": dict(
+        source="tpu_doom_torch/csrc/walk_table.cu",
+        replaces="tpu_doom/render/portal.py:652"),
     "walk_cross_entry": dict(
         source="tpu_doom_torch/csrc/walk.cu",
         replaces="tpu_doom/render/portal.py:795"),
     "walk_records_entry": dict(
         source="tpu_doom_torch/csrc/walk.cu",
         replaces="tpu_doom/render/portal.py:930"),
+    "walk_table_texstress": dict(
+        source="tpu_doom_torch/csrc/walk_table.cu",
+        replaces="tpu_doom/render/portal.py:652"),
     "walk_cross_texstress": dict(
         source="tpu_doom_torch/csrc/walk.cu",
         replaces="tpu_doom/render/portal.py:795"),
@@ -379,7 +395,7 @@ SWEEP_TRI_OPS = 300   # one swept-sphere vs triangle test (face, 3 vertex, 3 edg
 SHADE_PIXEL_OPS = 60  # one pixel's shade (texel address, light row)
 CROSS_TEST_OPS = 19   # one ray against one walk row: denom, t, u, the validity tests
 RECORD_OPS = 64       # one kept crossing's five records and alpha word in one column
-WALK = ("walk_cross", "walk_records")  # the walk's kernels, both on every level
+WALK = ("walk_table", "walk_cross", "walk_records")  # the walk's kernels, all on every level
 # B4's selected columns W2 reads: all 74 but the two back heights (the
 # clip window's, W1's) and the three pieces' unmasked-texture flags.
 W2_SEL_COLS = 69
@@ -574,10 +590,12 @@ def portal_bytes(args, kw):
     alpha test's other channels (15, and 5 and 8-12 unless the record wins
     in the column); once per column, the channels each winner's kind uses
     (the kind alone for kind 0 and the sky, 6 for a flat, 11 for a wall);
-    the camera and shear; dxz of each column with a flat pixel, the sky
-    image at sky pixels, and each distinct table entry read. The plain
-    walk on the records with channel 2 set to each record's position + 1
-    gives the winners."""
+    the camera and shear; dxz of each column with a flat pixel; the sky
+    coordinates of each column and row with a sky pixel and the sky
+    texture's sectors its sky pixels read; and each distinct table entry
+    read. The outputs are u8 and bool: 2 bytes a pixel. The plain walk on
+    the records with channel 2 set to each record's position + 1 gives the
+    winners."""
     from tpu_doom_torch._numerics import f32
     from tpu_doom_torch.ops.raster import (
         MASKED_FAMILY,
@@ -588,7 +606,8 @@ def portal_bytes(args, kw):
         _shade_address,
     )
 
-    records, words, cam, hc, dxz, _, tex, hole_bytes, _, H, p11, n_rows = args
+    (records, words, cam, hc, dxz, sky_x, sky_y, sky_tex, tex, hole_bytes, _, H, p11,
+     n_rows) = args
     shear = kw["shear"]
     B, R, _, W = records.shape
     dev = records.device
@@ -600,7 +619,7 @@ def portal_bytes(args, kw):
     win = _classify(marked, words, cam_y, hc, ndc_y, y, f32(p11), False)[:, 0].long() - 1
     del marked
     ch = _classify(records, words, cam_y, hc, ndc_y, y, f32(p11), False)
-    n = 2 * win.numel() * 4 + nbytes(cam, shear)
+    n = 2 * win.numel() + nbytes(cam, shear)
     open_ = win < 0
     n += 8 * int((torch.where(open_, R - 1, win).amax(1) + 1).sum())
     for r in range(MASKED_FAMILY, R, RECORDS_PER_CROSSING):
@@ -616,7 +635,7 @@ def portal_bytes(args, kw):
     column = torch.arange(B * W, device=dev).view(B, 1, W)
     winners = torch.unique(((column * R + win) * 16 + used)[~open_])
     n += 4 * int((winners % 16).sum())
-    n += 8 * int(flat.any(1).sum()) + 4 * int((kind == 3.0).sum())
+    n += 8 * int(flat.any(1).sum()) + sky_bytes(kind == 3.0, sky_x, sky_y, sky_tex)
     S1 = tex.shape[-2]
     lin, crow, _, _ = _shade_address(ch, ndc_y, dxz[:, 0, None, :], dxz[:, 1, None, :],
                                      cam_x, cam_y, cam_z, f32(p11), n_rows, S1)
@@ -629,6 +648,16 @@ def portal_bytes(args, kw):
         v1, hole = _global_texel(tex, hole_bytes, lin)
         key = lin
     return n + _table_bytes(key, lin, crow, v1, hole, textured, tex, hole_bytes)
+
+
+def sky_bytes(sky, sky_x, sky_y, sky_tex):
+    """The bytes B2 reads for its sky pixels `sky` (B, H, W) bool: the
+    texel column of each column and the texel row of each row that has
+    one (4 bytes each), and the distinct 32-byte sectors of the sky
+    texture (hs, ws) u8 that they read."""
+    addr = sky_y.long()[:, :, None] * sky_tex.shape[1] + sky_x.long()[:, None, :]
+    return (4 * int(sky.any(1).sum()) + 4 * int(sky.any(2).sum())
+            + _sector_bytes(addr[sky]))
 
 
 @torch.no_grad()
@@ -1058,25 +1087,39 @@ def same_bits(a, b):
 
 
 def walk_args(pscene, scene, cfg, width, height, state):
-    """The arguments the walk of `state` gives W1 and W2."""
+    """The arguments the walk of `state` gives W0, W1 and W2."""
     from tpu_doom_torch.render import portal as P
 
     act = P.active_segs(pscene, cfg)
-    with captured(P, "walk_cross") as cross, captured(P, "walk_records") as recs:
+    with (captured(P, "walk_table") as tab, captured(P, "walk_cross") as cross,
+          captured(P, "walk_records") as recs):
         P.walk(pscene, scene, cfg, width, height, int(cfg.portal_crossings), state,
                active_segs=act)
-    require(len(cross) == 1 and len(recs) == 1, "the walk did not call W1 and W2 once each")
-    return cross[0], recs[0]
+    require(len(tab) == 1 and len(cross) == 1 and len(recs) == 1,
+            "the walk did not call W0, W1 and W2 once each")
+    return tab[0], cross[0], recs[0]
+
+
+def walk_table_bytes(targs, got):
+    """The bytes W0 must move (its bound's): its outputs written once, the
+    env inputs, and the level's arrays it reads, each once."""
+    from tpu_doom_torch.ops.walk import level_arrays
+
+    pt, lights_f, objoff, time_, right, fwd, o, *_, aligned = targs
+    return (nbytes(*(x for x in got if x is not None))
+            + nbytes(lights_f, objoff, time_, right, fwd, o, *level_arrays(pt, aligned)))
 
 
 @torch.no_grad()
 def phase_walk(results, suffix, label, pscene, scene, cfg, width, height, state,
                row=True, shifted=False):
-    """W1 and W2 on the arguments the port's walk of `state` gives them,
-    each bitwise against its plain version, timed beside its bound; W1
-    also beside the one torch.sort(td, dim=2, stable=True) its plain
+    """W0, W1 and W2 on the arguments the port's walk of `state` gives
+    them, each bitwise against its plain version, timed beside its bound;
+    W1 also beside the one torch.sort(td, dim=2, stable=True) its plain
     version makes. `row`: kept as the rows `walk_*<suffix>`, else printed
-    only. `shifted`: W2 must take the active set's texel shift. W1's
+    only. `shifted`: W2 must take the active set's texel shift. W0's
+    bound: its outputs (the table, the endpoints, ordv and the overflow),
+    the env inputs and the level arrays it reads, each once. W1's
     bound: its inputs (the six prefix columns of the table) and outputs, or
     CROSS_TEST_OPS per (env, column, row); W2's: the kept crossings'
     W1 outputs, the 32-byte sectors of the table rows they select (or,
@@ -1091,10 +1134,33 @@ def phase_walk(results, suffix, label, pscene, scene, cfg, width, height, state,
         walk_cross_ref,
         walk_records,
         walk_records_ref,
+        walk_table,
     )
+    from tpu_doom_torch.render.portal import walk_table_ref
 
-    cross, recs = walk_args(pscene, scene, cfg, width, height, state)
-    out = results if row else {f"walk_cross{suffix}": {}, f"walk_records{suffix}": {}}
+    targs, cross, recs = walk_args(pscene, scene, cfg, width, height, state)
+    out = results if row else {f"{k}{suffix}": {} for k in WALK}
+    got, want = walk_table(*targs), walk_table_ref(*targs)
+    torch.cuda.synchronize()
+    same = (len(got) == len(want)
+            and all((a is None and b is None) or (a is not None and b is not None
+                                                  and same_bits(a, b))
+                    for a, b in zip(got, want)))
+    err = max(max_abs_err(a.float(), b.float()) for a, b in zip(got, want)
+              if a is not None and b is not None)
+    del want
+    ms, b2b = kernel_ms(lambda: walk_table(*targs))
+    plain = time_ms(lambda: walk_table_ref(*targs))
+    table, _, _, ordv, tovf = got
+    sv = targs[10]
+    print(f"[kernel] W0 walk_table {label}: B {table.shape[0]}, rows"
+          f" {targs[0]['has_back'].shape[0]} -> table {tuple(table.shape)}, cull"
+          f" {'off' if ordv is None else f'to {sv} rows'}, {int(tovf.sum())} envs over it:"
+          f" bitwise equal {same} (ceiling 0), max_abs_err {err}; {ms:.4f} ms"
+          f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
+    require(same, f"W0 disagrees with its plain version on {label}")
+    record(out, "walk_table" + suffix, err, ms, b2b, plain, walk_table_bytes(targs, got))
+    del got, table, ordv, tovf
     got, want = walk_cross(*cross), walk_cross_ref(*cross)
     torch.cuda.synchronize()
     same = all(same_bits(a, b) for a, b in zip(got, want))
@@ -1254,7 +1320,7 @@ def phase_kernels_texstress(results):
            library_ms=lib)
     del calls, idx, tab, got, want
 
-    require(args[6].dim() == 2, "B2 is not in its global-table mode at shipped defaults")
+    require(args[8].dim() == 2, "B2 is not in its global-table mode at shipped defaults")
     gi, gc_ = render_portal_fused(*args, **kw)
     wi, wc = render_portal_fused_ref(*args, **kw)
     torch.cuda.synchronize()
@@ -1263,7 +1329,7 @@ def phase_kernels_texstress(results):
     ms, b2b = kernel_ms(lambda: render_portal_fused(*args, **kw))
     plain = time_ms(lambda: render_portal_fused_ref(*args, **kw))
     print(f"[kernel] B2 render_portal_fused {TEX_WAD} global table"
-          f" {tuple(args[6].shape)} records {tuple(args[0].shape)}: {mism} mismatched"
+          f" {tuple(args[8].shape)} records {tuple(args[0].shape)}: {mism} mismatched"
           f" idx/cov px (ceiling 0), max_abs_err {err}; {ms:.4f} ms"
           f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
     require(mism == 0, f"B2 on {TEX_WAD} disagrees with its plain version on {mism} px")
@@ -1323,7 +1389,7 @@ def phase_kernels_texstress(results):
     record(results, "gather_cells", err, ms, b2b, plain, nbytes(meta, got) + read)
     del sl, gc, sidx, live, meta, tex_full, got, want
 
-    require(args[6].dim() == 3, "B2 is not in its per-env mode on the active set")
+    require(args[8].dim() == 3, "B2 is not in its per-env mode on the active set")
     gi, gc_ = render_portal_fused(*args, **kw)
     wi, wc = render_portal_fused_ref(*args, **kw)
     torch.cuda.synchronize()
@@ -1331,7 +1397,7 @@ def phase_kernels_texstress(results):
     err = max(max_abs_err(gi, wi), max_abs_err(gc_, wc))
     ms, b2b = kernel_ms(lambda: render_portal_fused(*args, **kw))
     plain = time_ms(lambda: render_portal_fused_ref(*args, **kw))
-    print(f"[kernel] B2 render_portal_fused per-env tables {tuple(args[6].shape)}"
+    print(f"[kernel] B2 render_portal_fused per-env tables {tuple(args[8].shape)}"
           f" records {tuple(args[0].shape)}: {mism} mismatched idx/cov px"
           f" (ceiling 0), max_abs_err {err}; {ms:.4f} ms"
           f" ({b2b:.4f} back to back) vs plain {plain:.4f} ms")
@@ -1405,7 +1471,7 @@ def phase_tools(results):
         torch.cuda.synchronize()
         mism = int((gi != wi).sum()) + int((gc != wc).sum())
         err[name] = max(max_abs_err(gi, wi), max_abs_err(gc, wc))
-        same_b2 = bitwise_equal(gi, pi) and bitwise_equal(gc, pc)
+        same_b2 = same_bits(gi, pi) and same_bits(gc, pc)
         ms[name] = time_ms(lambda s=stages: KB.render_portal_ablated(*args, **kw, ablate=s),
                            per_pair=b2b)
         plain[name] = time_ms(lambda s=stages: KB.render_portal_ablated_ref(
@@ -1556,7 +1622,7 @@ def phase_goldens_hires():
 
 def _env_slice(args, kw, i, j):
     """B2's arguments for envs i..j-1 (the per-env ones sliced)."""
-    per_env = {0, 1, 2, 4, 5}
+    per_env = {0, 1, 2, 4, 5, 6}
     return (tuple(x[i:j] if n in per_env else x for n, x in enumerate(args)),
             dict(shear=kw["shear"][i:j]))
 

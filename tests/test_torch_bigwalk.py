@@ -160,13 +160,16 @@ def test_big_walk_matches_jax_walk(jax_big_walk):
 
 def test_render_portal_fused_ref_per_env_matches_pallas_interpret(jax_big_walk):
     """(e) B2's plain version in its per-env mode vs
-    render_portal_fused_pallas(per_env_tex=True) on JAX-made records and
-    active tables."""
+    render_portal_fused_pallas(per_env_tex=True) followed by the JAX
+    package's casts (u8 idx, cov > 0.5) on JAX-made records and active
+    tables; the port takes the sky as `sky_coords` of the JAX walk's
+    camera terms, whose gather is the JAX sky image."""
     import math
 
     from tpu_doom.ops.raster_pallas import render_portal_fused_pallas
 
-    from tpu_doom_torch.ops.raster import render_portal_fused_ref
+    from tpu_doom_torch.ops.raster import render_portal_fused_ref, sky_gather
+    from tpu_doom_torch.render.portal import sky_coords
 
     j = jax_big_walk
     ps, aux, H = j["ps"], j["aux"], j["H"]
@@ -179,11 +182,17 @@ def test_render_portal_fused_ref_per_env_matches_pallas_interpret(jax_big_walk):
         interpret=True, holeless=True, shear=aux["shear"], per_env_tex=True)
     T = lambda x: torch.as_tensor(np.array(x))  # noqa: E731
     tabs = torch.as_tensor(np.asarray(j["tabs"].astype(jnp.float32)).astype(np.int16))
+    simt = TorchSim(j["tcfg"], "cpu")
+    sky_x, sky_y = sky_coords(simt.scene, simt.config, j["W"], H,
+                              *(T(aux[k]) for k in ("sy", "cy", "sp", "cp")))
+    sky_tex = simt.portal_scene()["sky_tex"]
+    np.testing.assert_array_equal(sky_gather(sky_x, sky_y, sky_tex).numpy(),
+                                  np.asarray(j["sky"]))
     got_i, got_c = render_portal_fused_ref(
-        T(j["rec"]), T(j["words"]), T(aux["cam"]), int(hc), T(dxz), T(j["sky"]),
-        tabs, None, T(ps["cmap_i8"]), H, p11, 32, shear=T(aux["shear"]))
-    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
-    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+        T(j["rec"]), T(j["words"]), T(aux["cam"]), int(hc), T(dxz), sky_x, sky_y,
+        sky_tex, tabs, None, T(ps["cmap_i8"]), H, p11, 32, shear=T(aux["shear"]))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i.astype(jnp.uint8)))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c > 0.5))
     assert np.asarray(want_c).mean() > 0.9
 
 

@@ -163,7 +163,7 @@ def test_big_walk_kernels_match_plain_versions_on_card(cuda_device):
     assert torch.equal(gather_cells(meta, tex_full, act),
                        gather_cells_ref(meta, tex_full, act))
     args, kw, _ = P.fused_inputs(sim.portal_scene(), sim.scene, sim.config, 64, 40, s)
-    assert args[6].dim() == 3
+    assert args[8].dim() == 3
     gi, gc = render_portal_fused(*args, **kw)
     wi, wc = render_portal_fused_ref(*args, **kw)
     assert torch.equal(gi, wi) and torch.equal(gc, wc)
@@ -192,8 +192,9 @@ def _bitwise(a, b):
 
 
 def _walk_calls(case, device):
-    """The arguments the walk of WALK_CASES[case] gives W1 and W2 (a list
-    each, empty where it does not run) and the sim and state it walked."""
+    """The arguments the walk of WALK_CASES[case] gives W0, W1 and W2 (a
+    list each, empty where it does not run) and the sim and state it
+    walked."""
     from tpu_doom_torch.render import portal as P
 
     wad, extra, _ = WALK_CASES[case]
@@ -205,7 +206,7 @@ def _walk_calls(case, device):
         s = sim.step(s, a)
     s = s._replace(yaw=s.yaw + torch.tensor([0.0, 0.7, 2.1, -1.3], device=device),
                    pitch=torch.tensor([0.0, 0.3, 0.0, -0.2], device=device))
-    calls = {"walk_cross": [], "walk_records": []}
+    calls = {"walk_table": [], "walk_cross": [], "walk_records": []}
     origs = {n: getattr(P, n) for n in calls}
 
     def spy(name):
@@ -229,16 +230,28 @@ def _walk_calls(case, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(WALK_CASES))
 def test_walk_kernels_match_plain_versions_on_card(cuda_device, case):
-    """On the card: W1 and W2 bit-equal to their plain versions on every
-    walk branch (W2 reading the table or B4's selection), and the walk on
-    the card bit-equal to the plain walk on the CPU (records, words,
-    overflow)."""
-    from tpu_doom_torch.ops import walk_cross, walk_cross_ref, walk_records, walk_records_ref
+    """On the card: W0, W1 and W2 bit-equal to their plain versions on
+    every walk branch (W0 with and without the visible-row cull, W2
+    reading the table or B4's selection), and the walk on the card
+    bit-equal to the plain walk on the CPU (records, words, overflow)."""
+    from tpu_doom_torch.ops import (
+        walk_cross,
+        walk_cross_ref,
+        walk_records,
+        walk_records_ref,
+        walk_table,
+    )
     from tpu_doom_torch.render import portal as P
     from tpu_doom_torch.sim.state import SimState
 
     calls, (rec, words, aux), sim, s, act = _walk_calls(case, cuda_device)
-    assert len(calls["walk_cross"]) == 1 and len(calls["walk_records"]) == 1
+    assert all(len(c) == 1 for c in calls.values())
+    targs = calls["walk_table"][0]
+    got, want = walk_table(*targs), P.walk_table_ref(*targs)
+    assert (got[3] is None) == (want[3] is None) == (targs[10] == 0)
+    assert all(_bitwise(x, y) for x, y in zip(got, want) if x is not None)
+    if case == "big_cull":
+        assert targs[10] == 208 and bool(got[4].any())
     got, want = walk_cross(*calls["walk_cross"][0]), walk_cross_ref(*calls["walk_cross"][0])
     assert all(_bitwise(x, y) for x, y in zip(got, want))
     args = calls["walk_records"][0]
@@ -296,6 +309,32 @@ def test_walk_kernels_in_captured_graph_on_card(cuda_device):
     assert all(_bitwise(x, y) for x, y in zip(w1, want1))
     want2 = walk_records_ref(*want1, *rest)
     assert all(_bitwise(x, y) for x, y in zip(w2, want2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["test", "big_cull"])
+def test_walk_table_in_captured_graph_on_card(cuda_device, case):
+    """W0 captured in a CUDA graph, with and without the cull: its output
+    shapes are static, it reads nothing back to the host, and a replay
+    gives its plain version's outputs, bitwise."""
+    from tpu_doom_torch.ops import walk_table
+    from tpu_doom_torch.render.portal import walk_table_ref
+
+    calls, *_ = _walk_calls(case, cuda_device)
+    targs = calls["walk_table"][0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        walk_table(*targs)  # warm-up, outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = walk_table(*targs)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = walk_table_ref(*targs)
+    assert all(_bitwise(x, y) for x, y in zip(got, want) if x is not None)
+    assert (got[3] is None) == (case == "test")
 
 
 @pytest.mark.cuda
@@ -386,7 +425,8 @@ def test_render_portal_ablated_matches_plain_versions_on_card(cuda_device):
         assert torch.equal(gi, wi) and torch.equal(gc, wc), name
     pi, pc = render_portal_fused(*args, **kw)
     gi, gc = KB.render_portal_ablated(*args, **kw)
-    assert torch.equal(gi.view(torch.int32), pi.view(torch.int32)) and torch.equal(gc, pc)
+    assert gi.dtype == pi.dtype == torch.uint8
+    assert torch.equal(gi, pi) and torch.equal(gc, pc)
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +486,7 @@ GRATE_POS = [-3.5, 1.0, -9.0]  # a view of :test:'s masked grate
 @pytest.mark.parametrize("wad, width, height, extra, R, per_env", [
     (":test:", 64, 40, {}, 40, False),
     (":test:", 72, 45, {}, 40, False),
+    (":doom2:", 640, 400, {}, 40, False),  # config 5's MAP01 at its size
     (":test:", 72, 45, dict(portal_compact_crossings=1), 5, False),
     (":texstress:10x16", 72, 45, {}, 120, False),
     (":texstress:10x16", 64, 40, dict(portal_global_segs_max=1024), 120, True),
@@ -453,10 +494,12 @@ GRATE_POS = [-3.5, 1.0, -9.0]  # a view of :test:'s masked grate
 ])
 def test_render_portal_fused_shapes_on_card(cuda_device, wad, width, height, extra, R,
                                             per_env):
-    """On the card: B2 bitwise equal to its plain version in both table
-    modes, at 64x40 and at 72x45 (W not a multiple of the 32-column strip,
-    H not of the 8-row group), at R = 5, 40 and 120 records per column,
-    with masked records on :test: (one env at the grate) and pitched envs."""
+    """On the card: B2 (sky coordinates in, u8 / bool frames out) equal
+    to its plain version in both table modes, at 64x40, at 72x45 (W not a
+    multiple of the 32-column strip, H not of the 8-row group) and at
+    config 5's 640x400 on MAP01, at R = 5, 40 and 120 records per column,
+    with masked records on :test: (one env at the grate), pitched envs and
+    sky pixels."""
     from tpu_doom_torch.ops import render_portal_fused, render_portal_fused_ref
     from tpu_doom_torch.ops.raster import MASKED_FAMILY, RECORDS_PER_CROSSING
     from tpu_doom_torch.render.portal import fused_inputs
@@ -471,14 +514,38 @@ def test_render_portal_fused_shapes_on_card(cuda_device, wad, width, height, ext
         pos[0] = torch.tensor(GRATE_POS, device=cuda_device)
         s = s._replace(pos=pos)
     args, kw, _ = fused_inputs(sim.portal_scene(), sim.scene, sim.config, width, height, s)
-    assert args[0].shape[1] == R and (args[6].dim() == 3) == per_env
+    assert args[0].shape[1] == R and (args[8].dim() == 3) == per_env
     if wad == ":test:":
         assert bool((args[0][:, MASKED_FAMILY::RECORDS_PER_CROSSING, 13] > 0.5).any())
     gi, gc = render_portal_fused(*args, **kw)
     wi, wc = render_portal_fused_ref(*args, **kw)
-    assert torch.equal(gi.view(torch.int32), wi.view(torch.int32))
-    assert torch.equal(gc.view(torch.int32), wc.view(torch.int32))
-    assert float(gc.mean()) > 0.5
+    assert (gi.dtype, gc.dtype) == (wi.dtype, wc.dtype) == (torch.uint8, torch.bool)
+    assert torch.equal(gi, wi) and torch.equal(gc, wc)
+    assert float(gc.float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+def test_render_portal_fused_entry_shape_on_card(cuda_device):
+    """On the card: B2 equal to its plain version at entry()'s shape (2
+    envs at 64x40: two 32-column strips, rows in 12-row groups with a
+    ragged last one), after a few walking ticks, one env pitched."""
+    from tpu_doom_torch.entry import entry_sim
+    from tpu_doom_torch.ops import render_portal_fused, render_portal_fused_ref
+    from tpu_doom_torch.render.portal import fused_inputs
+
+    sim = entry_sim(cuda_device)
+    s = sim.reset()
+    a = sim.null_actions()._replace(movement=torch.tensor([[0.0, 1.0]] * 2,
+                                                          device=cuda_device))
+    for _ in range(4):
+        s = sim.step(s, a)
+    s = s._replace(pitch=torch.tensor([0.0, 0.25], device=cuda_device))
+    args, kw, _ = fused_inputs(sim.portal_scene(), sim.scene, sim.config, 64, 40, s)
+    assert args[0].shape[0] == 2 and args[5].shape == (2, 64) and args[6].shape == (2, 40)
+    gi, gc = render_portal_fused(*args, **kw)
+    wi, wc = render_portal_fused_ref(*args, **kw)
+    assert gi.shape == (2, 40, 64) and gi.dtype == torch.uint8 and gc.dtype == torch.bool
+    assert torch.equal(gi, wi) and torch.equal(gc, wc)
 
 
 @pytest.mark.cuda

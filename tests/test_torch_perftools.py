@@ -290,7 +290,8 @@ def test_measure_all_rows_start_with_the_shell_rows():
 @pytest.mark.parametrize("fault", [None, "fails", "silent", "times_out"])
 def test_measure_all_exit_code(fault, monkeypatch, capsys):
     """(d) Exit 0 when every row succeeds, else 1 with the row named; every
-    row runs, one at a time, with its own time limit."""
+    row runs, one at a time, with its own time limit; each row's report
+    carries its checksum line from standard error."""
     calls = []
 
     def fake_run(cmd, cwd, env, capture_output, text, timeout):
@@ -300,7 +301,7 @@ def test_measure_all_exit_code(fault, monkeypatch, capsys):
             raise subprocess.TimeoutExpired(cmd, timeout)
         out = "" if bad and fault == "silent" else "set-up\n{\"value\": 1.0}\n"
         return subprocess.CompletedProcess(cmd, 1 if bad and fault == "fails" else 0,
-                                           out, "a traceback")
+                                           out, "bench: timed 1.0s, checksum 77\na traceback")
 
     monkeypatch.setattr(MA.subprocess, "run", fake_run)
     rc = MA.main()
@@ -312,6 +313,8 @@ def test_measure_all_exit_code(fault, monkeypatch, capsys):
     if fault is None:
         assert rc == 0 and err == ""
         assert out.count('{"value": 1.0}') == len(MA.ROWS)
+        assert out.count("bench: timed 1.0s, checksum 77") == len(MA.ROWS)
+        assert "a traceback" not in out
     else:
         assert rc == 1
         assert "1 row(s) failed: BENCH_LOOKY=1 python3 -m tpu_doom_torch.bench" in err

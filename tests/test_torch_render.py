@@ -64,8 +64,31 @@ def _walk_inputs(W, H):
     return sim, ps, rec, words, aux, sky
 
 
+def _port_sky(wad, W, H, aux, want=None):
+    """B2's sky operands from the port: `sky_coords` of the JAX walk's
+    camera terms (aux), and the port's u8 sky texture of `wad`. Where the
+    JAX sky image `want` is given, their gather must equal it."""
+    from tpu_doom_torch.ops.raster import sky_gather
+    from tpu_doom_torch.render.portal import sky_coords
+
+    simt = TorchSim(TorchConfig(wad_file=wad, width=W, height=H,
+                                raster_backend="portal"), "cpu")
+    sky_x, sky_y = sky_coords(simt.scene, simt.config, W, H, T(aux["sy"]),
+                              T(aux["cy"]), T(aux["sp"]), T(aux["cp"]))
+    sky_tex = simt.portal_scene()["sky_tex"]
+    assert (sky_x.dtype, sky_y.dtype, sky_tex.dtype) == (torch.int32, torch.int32,
+                                                         torch.uint8)
+    if want is not None:
+        np.testing.assert_array_equal(sky_gather(sky_x, sky_y, sky_tex).numpy(),
+                                      np.asarray(want))
+    return sky_x, sky_y, sky_tex
+
+
 def test_render_portal_fused_ref_matches_pallas_interpret():
-    """(c) B2's plain version vs render_portal_fused_pallas(interpret)."""
+    """(c) B2's plain version vs render_portal_fused_pallas(interpret)
+    followed by the JAX package's casts (portal.py:1587: idx as u8, cov >
+    0.5): the port takes the sky as coordinates, whose gather is the JAX
+    sky image the Pallas kernel takes, and returns u8 / bool."""
     from tpu_doom.ops.raster_pallas import render_portal_fused_pallas
 
     from tpu_doom_torch.ops.raster import render_portal_fused_ref
@@ -80,12 +103,51 @@ def test_render_portal_fused_ref_matches_pallas_interpret():
         ps["cmap_i8"], H, p11, 32, tile_h=40, interpret=True,
         shear=aux["shear"], hole_ranges=ps["hole_ranges"])
     got_i, got_c = render_portal_fused_ref(
-        T(rec), T(words), T(aux["cam"]), int(hc), T(dxz), T(sky),
+        T(rec), T(words), T(aux["cam"]), int(hc), T(dxz), *_port_sky(":test:", W, H, aux, sky),
         T(ps["tex_i8"]), T(ps["hole_bytes"]), T(ps["cmap_i8"]), H, p11, 32,
         shear=T(aux["shear"]))
-    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
-    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    assert got_i.dtype == torch.uint8 and got_c.dtype == torch.bool
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i.astype(jnp.uint8)))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c > 0.5))
     assert np.asarray(want_c).mean() > 0.9
+    assert np.asarray(aux["shear"]).any()
+
+
+# Sky cases: wad, yaws, pitches (the JAX `_sky_image` takes the camera
+# terms as they are; a pitched env moves the sky rows).
+SKY_CASES = {
+    "test_pitched": (":test:", [0.0, 0.9, 2.5, -1.2], [0.0, -0.35, 0.3, 0.0]),
+    "doom2": (":doom2:", [0.0, 1.7, -2.4, 3.0], [0.0, 0.3, 0.0, -0.2]),
+}
+
+
+@pytest.mark.parametrize("case", list(SKY_CASES))
+def test_sky_coords_gather_is_jax_sky_image(case):
+    """`sky_coords` then the two row gathers of B2's plain version
+    (`sky_gather`) equal the JAX package's `_sky_image`, bitwise, under
+    pitch and on :doom2:."""
+    from tpu_doom.render.portal import _sky_image
+
+    wad, yaws, pitches = SKY_CASES[case]
+    W, H = 64, 40
+    cfg = GameConfig(wad_file=wad, width=W, height=H, raster_backend="portal")
+    sim = JaxSim(cfg)
+    ps = sim._get_portal_scene()
+    yaw = np.asarray(yaws, np.float32)
+    pitch = np.asarray(pitches, np.float32)
+    on = np.abs(pitch) > 1e-5
+    aux = dict(sy=np.sin(yaw.astype(np.float64)).astype(np.float32),
+               cy=np.cos(yaw.astype(np.float64)).astype(np.float32),
+               sp=np.where(on, np.sin(pitch.astype(np.float64)), 0.0).astype(np.float32),
+               cp=np.where(on, np.cos(pitch.astype(np.float64)), 1.0).astype(np.float32))
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda sy, cy, sp, cp: _sky_image(ps, sim.scene, cfg, W, H, sy, cy, sp, cp)
+    ))(aux["sy"], aux["cy"], aux["sp"], aux["cp"]))
+    sky_x, sky_y, _ = _port_sky(wad, W, H, aux, want)
+    assert sky_x.shape == (4, W) and sky_y.shape == (4, H)
+    # The pitched envs' sky rows differ from the level ones' (env 0's).
+    assert on.sum() == 2 and not on[0]
+    assert all(torch.equal(sky_y[i], sky_y[0]) != bool(on[i]) for i in range(1, 4))
 
 
 def test_walk_and_tables_match_jax():

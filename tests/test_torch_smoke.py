@@ -4,8 +4,8 @@ count made pixel by pixel on the CPU.
 The bound of a kernel whose reads depend on the data counts what these
 inputs need: `portal_bytes` (B2, both table modes) and `shade_bytes`
 (B8) count it with whole-tensor operations from the plain version's
-walk, each table read (texel, hole byte, colormap entry) as the distinct
-32-byte sector that holds it, the unit DRAM moves. Here the winners come
+walk, each table read (texel, hole byte, colormap entry; B2's sky texel)
+as the distinct 32-byte sector that holds it, the unit DRAM moves. Here the winners come
 another way (the first prefix of the records that covers a pixel) and
 each env, column and pixel is counted in a Python loop. Tolerance: exact
 (integers).
@@ -85,7 +85,8 @@ def _table_entry(tex, hole_bytes, b, lin):
 
 
 def _portal_bytes_by_pixel(args, kw):
-    records, words, cam, hc, dxz, _, tex, hole_bytes, _, height, p11, n_rows = args
+    (records, words, cam, hc, dxz, sky_x, sky_y, sky_tex, tex, hole_bytes, _, height,
+     p11, n_rows) = args
     shear = kw["shear"]
     B, R, _, width = records.shape
     y, ndc0 = _ndc_rows(height, "cpu")
@@ -101,8 +102,10 @@ def _portal_bytes_by_pixel(args, kw):
     lin, crow, _, _ = _shade_address(
         ch, ndc_y, dxz[:, 0, None, :], dxz[:, 1, None, :], cam[:, 0, None, None], cam_y,
         cam[:, 2, None, None], f32(p11), n_rows, tex.shape[-2])
-    total = 8 * B * height * width + 4 * (cam.numel() + shear.numel())
-    texels, holes, cmap = set(), set(), set()
+    # The u8 and bool frames: 2 bytes a pixel.
+    total = 2 * B * height * width + 4 * (cam.numel() + shear.numel())
+    texels, holes, cmap, skies = set(), set(), set(), set()
+    sky_rows = set()  # (env, row) with a sky pixel: its sky_y entry
     for b in range(B):
         for c in range(width):
             w = win[b, :, c].tolist()
@@ -117,10 +120,14 @@ def _portal_bytes_by_pixel(args, kw):
             for r in {x for x in w if x >= 0}:
                 kind = float(records[b, r, 2, c])
                 total += 4 * (11 if kind in (2.0, 4.0) else 1 if kind in (0.0, 3.0) else 6)
-            flat_column = False
+            flat_column = sky_column = False
             for h in range(height):
                 kind = float(ch[b, 0, h, c])
-                total += 4 * (kind == 3.0)
+                if kind == 3.0:  # the sky texel's sector, its row and column
+                    sky_column = True
+                    sky_rows.add((b, h))
+                    skies.add((int(sky_y[b, h]) * sky_tex.shape[1] + int(sky_x[b, c]))
+                              // SECTOR)
                 if kind in (0.0, 3.0):
                     continue
                 flat_column |= kind not in (2.0, 4.0)
@@ -130,8 +137,9 @@ def _portal_bytes_by_pixel(args, kw):
                     holes.add(hbyte)
                 if not hole:
                     cmap.add((int(crow[b, h, c]) * 256 + v1) // SECTOR)
-            total += 8 * flat_column
-    return total + SECTOR * (len(texels) + len(holes) + len(cmap))
+            total += 8 * flat_column + 4 * sky_column
+    return total + 4 * len(sky_rows) + SECTOR * (len(texels) + len(holes) + len(cmap)
+                                                 + len(skies))
 
 
 @pytest.mark.parametrize("wad, extra, per_env", [
@@ -146,13 +154,13 @@ def test_portal_bytes_counts_each_column(wad, extra, per_env):
     cs = _chip_smoke()
     sim, s = _state(wad, **extra)
     args, kw, _ = fused_inputs(sim.portal_scene(), sim.scene, sim.config, W, H, s)
-    assert (args[6].dim() == 3) == per_env
+    assert (args[8].dim() == 3) == per_env
     if wad == ":test:":
         assert bool((args[0][:, MASKED_FAMILY::RECORDS_PER_CROSSING, 13] > 0.5).any())
     got = cs.portal_bytes(args, kw)
     assert got == _portal_bytes_by_pixel(args, kw)
     whole = cs.nbytes(*[a for a in args if isinstance(a, torch.Tensor)], kw["shear"])
-    assert 8 * 2 * W * H < got < whole + 8 * 2 * W * H
+    assert 2 * 2 * W * H < got < whole + 2 * 2 * W * H  # the frames: u8 + bool
 
 
 def test_shade_bytes_counts_each_pixel():

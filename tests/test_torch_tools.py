@@ -119,6 +119,25 @@ def test_lookup_copy_floor_and_refusals():
 GRATE = ([-3.5, 1.0, -9.0], 0.0)
 
 
+def _port_sky(W, H, aux, want):
+    """B2's sky operands from the port (`sky_coords` of the JAX walk's
+    camera terms, the u8 sky texture), held to the JAX sky image `want`
+    through their gather."""
+    from tpu_doom_torch.models import DoomSim
+    from tpu_doom_torch.ops.raster import sky_gather
+    from tpu_doom_torch.render.portal import sky_coords
+    from tpu_doom_torch.utils.config import GameConfig
+
+    sim = DoomSim(GameConfig(wad_file=":test:", width=W, height=H,
+                             raster_backend="portal"), "cpu")
+    sky_x, sky_y = sky_coords(sim.scene, sim.config, W, H,
+                              *(T(aux[k]) for k in ("sy", "cy", "sp", "cp")))
+    sky_tex = sim.portal_scene()["sky_tex"]
+    np.testing.assert_array_equal(sky_gather(sky_x, sky_y, sky_tex).numpy(),
+                                  np.asarray(want))
+    return sky_x, sky_y, sky_tex
+
+
 @pytest.fixture(scope="module")
 def budget_case():
     """The JAX walk's inputs for both sides, and a cache of `_ablated_call`
@@ -159,8 +178,10 @@ def budget_case():
     n_rows = scene.palette_lut.shape[0]
     jax_args = (rec, words, aux["cam"], ps["alpha_meta"][0], aux["d"].transpose(0, 2, 1),
                 sky, ps["tex_i8"], ps["hole_bytes"], ps["cmap_i8"], H, p11, n_rows)
-    torch_args = tuple(T(a) for a in jax_args[:3]) + (int(jax_args[3]),) + tuple(
-        T(a) for a in jax_args[4:9]) + (H, p11, n_rows)
+    # The port takes the sky as coordinates, whose gather is JAX's image.
+    torch_args = (tuple(T(a) for a in jax_args[:3]) + (int(jax_args[3]), T(jax_args[4]))
+                  + _port_sky(W, H, aux, sky) + tuple(T(a) for a in jax_args[6:9])
+                  + (H, p11, n_rows))
     cache = {}
 
     def jax_out(variant):
@@ -180,8 +201,9 @@ def test_ablated_ref_matches_kernelbudget_interpret(budget_case, variant):
     args, jax_out = budget_case
     want_i, want_c = jax_out(variant)
     got_i, got_c = KB.render_portal_ablated_ref(*args, ablate=KB.ABLATIONS[variant])
-    np.testing.assert_array_equal(got_i.numpy(), want_i)
-    np.testing.assert_array_equal(got_c.numpy(), want_c)
+    # The port's u8 / bool frames are the JAX f32 outputs after its casts.
+    np.testing.assert_array_equal(got_i.numpy(), want_i.astype(np.uint8))
+    np.testing.assert_array_equal(got_c.numpy(), want_c > 0.5)
     wi, wc = KB.render_portal_ablated(*args, ablate=KB.ABLATIONS[variant])
     assert torch.equal(wi, got_i) and torch.equal(wc, got_c)
     if variant == "no_classify":
@@ -201,7 +223,8 @@ def test_alpha_and_hole_switches_change_pixels(budget_case):
         diff = ((vi != fi) | (vc != fc)).sum(axis=(1, 2))
         assert diff[env] > 0, (variant, diff)
         gi, gc = KB.render_portal_ablated_ref(*args, ablate=KB.ABLATIONS[variant])
-        assert int(((gi.numpy() != fi) | (gc.numpy() != fc)).sum()) == int(diff.sum())
+        assert int(((gi.numpy() != fi.astype(np.uint8)) | (gc.numpy() != (fc > 0.5))).sum()
+                   ) == int(diff.sum())
 
 
 def test_ablated_ref_without_ablation_is_fused_ref():
@@ -220,8 +243,8 @@ def test_ablated_ref_without_ablation_is_fused_ref():
     assert bool(kw["shear"].any())
     gi, gc = KB.render_portal_ablated_ref(*args, **kw, ablate=())
     wi, wc = render_portal_fused_ref(*args, **kw)
-    assert torch.equal(gi.view(torch.int32), wi.view(torch.int32))
-    assert torch.equal(gc.view(torch.int32), wc.view(torch.int32))
+    assert (gi.dtype, gc.dtype) == (wi.dtype, wc.dtype) == (torch.uint8, torch.bool)
+    assert torch.equal(gi, wi) and torch.equal(gc, wc)
 
 
 def test_ablated_wrapper_refusals():
@@ -229,18 +252,18 @@ def test_ablated_wrapper_refusals():
     or CUDA tensors."""
     x = torch.zeros((1, 5, 16, 8))
     with pytest.raises(ValueError, match="no variant"):
-        KB.render_portal_ablated(x, None, None, 0, None, None, None, None, None, 4,
-                                 1.0, 32, ablate=("flatten",))
+        KB.render_portal_ablated(x, None, None, 0, None, None, None, None, None, None,
+                                 None, 4, 1.0, 32, ablate=("flatten",))
     with pytest.raises(ValueError, match="no variant"):
-        KB.render_portal_ablated_ref(x, None, None, 0, None, None, None, None, None, 4,
-                                     1.0, 32, ablate=("tex", "hole"))
+        KB.render_portal_ablated_ref(x, None, None, 0, None, None, None, None, None, None,
+                                     None, 4, 1.0, 32, ablate=("tex", "hole"))
     with pytest.raises(ValueError, match="global-table"):
-        KB.render_portal_ablated_ref(x, None, None, 0, None, None,
+        KB.render_portal_ablated_ref(x, None, None, 0, None, None, None, None,
                                      torch.zeros((1, 8, 128), dtype=torch.int16), None,
                                      None, 4, 1.0, 32)
     with pytest.raises(ValueError, match="device"):
         KB.render_portal_ablated(x.to("meta"), None, None, 0, None, None, None, None,
-                                 None, 4, 1.0, 32)
+                                 None, None, None, 4, 1.0, 32)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,18 @@ Cases (64x40, K = 24, crossing compaction at its AUTO 8 unless stated):
   then W2 on every crossing) on `:texstress:10x16` at the defaults, where
   W2 reads kernel B4's selection (JAX's walk selects through
   `select_rows_pallas` in interpret mode), and under
-  `portal_compact_crossings=4`, where W2 compacts and reads the table.
+  `portal_compact_crossings=4`, where W2 compacts and reads the table;
+* `:test:` at times up to 12.2 s with the movable objects' offsets drawn
+  from a seeded numpy generator (the animation, scroll and offset columns
+  of the attribute table).
+
+The attribute table, the rows' endpoints and the visible-row cull (W0's
+plain version, `render/portal.py:walk_table_ref`) are held bitwise to
+the JAX walk's own: the subprocess records them as `_walk_env` builds
+them (its `jnp.stack` of the 74 columns, the endpoints' two
+`jnp.concatenate`, the cull's `jnp.argsort` and one-hot select), with
+`jnp` in `tpu_doom/render/portal.py` replaced for the run by a proxy that
+passes every call through.
 """
 
 import functools
@@ -63,14 +74,18 @@ GROUPS = {
         (-2.0, -7.9, -3.1, 0.0, 0.0)]),
     "texstress": (":texstress:10x16", 0, {}, BIG_POSES),
     "texstress_compact": (":texstress:10x16", 0, dict(portal_compact_crossings=4), BIG_POSES),
+    "offsets": (":test:", 0, {}, [(-2.2, -8.8, 0.9, 0.0, 0.3), (-3.5, -9.0, 0.0, 0.2, 1.7),
+                                  (-3.8, -9.8, 2.1, 0.0, 5.0), (-1.9, -8.2, 0.0, 0.0, 12.2)]),
 }
+OFFSETS_SEED = {"offsets": 0}  # groups whose object offsets are drawn, with their seed
 SELECT = {"texstress": "interpret"}  # JAX's walk selects through B4's Pallas kernel
 # case -> (group, its envs)
 CASES = {"test": ("test", slice(0, 3)), "few_crossings": ("test", slice(3, 4)),
          "tie": ("test", slice(4, 5)), "doom2": ("doom2", slice(None)),
          "bank": ("bank", slice(None)), "overflow": ("overflow", slice(None)),
          "texstress": ("texstress", slice(None)),
-         "texstress_compact": ("texstress_compact", slice(None))}
+         "texstress_compact": ("texstress_compact", slice(None)),
+         "offsets": ("offsets", slice(None))}
 TIE_COLUMN = 31  # the tie pose's column through the corner
 
 
@@ -82,12 +97,53 @@ def _config(mod, wad, level, extra):
                           raster_backend="portal", render_env_chunk=0, **extra)
 
 
+class _TableSpy:
+    """Stands in for `jnp` in the JAX walk's module: passes every call
+    through, and while `log` is a dict records the attribute table (the
+    stack of 74 columns), then the rows' endpoints (the next two
+    concatenations) and the cull's argsort (its input and output) and
+    one-hot select of (p1, p2, table)."""
+
+    def __init__(self, jnp):
+        self._jnp = jnp
+        self.log = None
+
+    def __getattr__(self, name):
+        return getattr(self._jnp, name)
+
+    def stack(self, arrays, axis=0, **kw):
+        out = self._jnp.stack(arrays, axis=axis, **kw)
+        if self.log is not None and len(arrays) == 74 and "table" not in self.log:
+            self.log["table"] = out
+        return out
+
+    def concatenate(self, arrays, axis=0, **kw):
+        out = self._jnp.concatenate(arrays, axis=axis, **kw)
+        if self.log is not None and "table" in self.log and len(self.log.get("ends", ())) < 2:
+            self.log.setdefault("ends", []).append(out)
+        return out
+
+    def argsort(self, a, **kw):
+        out = self._jnp.argsort(a, **kw)
+        if self.log is not None and "table" in self.log and "argsort" not in self.log:
+            self.log["argsort_in"], self.log["argsort"] = a, out
+        return out
+
+    def einsum(self, spec, *operands, **kw):
+        out = self._jnp.einsum(spec, *operands, **kw)
+        if self.log is not None and spec == "vs,sc->vc":
+            self.log["selv"] = out
+        return out
+
+
 def _jax_walks(out_path):
-    """Subprocess body: every case's states and JAX walk into out_path."""
+    """Subprocess body: every case's states, JAX walk and attribute table
+    into out_path."""
     import jax
     import jax.numpy as jnp
 
     jax.config.update("jax_platforms", "cpu")
+    import tpu_doom.render.portal as JP
     from tpu_doom.geom.builder import compile_level
     from tpu_doom.models import DoomSim
     from tpu_doom.models.level_bank import LevelBank
@@ -126,14 +182,40 @@ def _jax_walks(out_path):
                        yaw=jnp.asarray([p[2] for p in poses], jnp.float32),
                        pitch=jnp.asarray([p[3] for p in poses], jnp.float32),
                        time=jnp.asarray([p[4] for p in poses], jnp.float32))
+        if case in OFFSETS_SEED:
+            rng = np.random.default_rng(OFFSETS_SEED[case])
+            s = s._replace(object_offset=jnp.asarray(rng.uniform(
+                -0.6, 0.6, s.object_offset.shape).astype(np.float32)))
         n_cross = int(cfg.portal_crossings)
-        rec, words, aux = jax.jit(jax.vmap(
-            lambda p, y, pi, o, t: _walk_env(ps, scene, cfg, W, H, n_cross, p, y, pi, o, t,
-                                             select_kernel=SELECT.get(case, ""))
-        ))(s.pos, s.yaw, s.pitch, s.object_offset, s.time)
+        spy = _TableSpy(jnp)
+
+        def walk_env(p, y, pi, o, t):
+            spy.log = {}
+            try:
+                rec, words, aux = _walk_env(ps, scene, cfg, W, H, n_cross, p, y, pi, o, t,
+                                            select_kernel=SELECT.get(case, ""))
+            finally:
+                log, spy.log = spy.log, None
+            if "selv" in log:  # the cull: the kept rows' (p1, p2, table)
+                sv = log["selv"]
+                tab = dict(p1=sv[:, :2], p2=sv[:, 2:4], table=sv[:, 4:],
+                           order=log["argsort"],
+                           visible=jnp.sum(log["argsort_in"] == 0))
+            else:
+                tab = dict(p1=log["ends"][0], p2=log["ends"][1], table=log["table"])
+            return rec, words, aux, tab
+
+        JP.jnp = spy
+        try:
+            rec, words, aux, tab = jax.jit(jax.vmap(walk_env))(
+                s.pos, s.yaw, s.pitch, s.object_offset, s.time)
+        finally:
+            JP.jnp = jnp
         out[f"{case}/records"] = np.asarray(rec)
         out[f"{case}/words"] = np.asarray(words)
         out[f"{case}/overflow"] = np.asarray(aux["overflow"])
+        for k, v in tab.items():
+            out[f"{case}/walk_table/{k}"] = np.asarray(v)
         for field, v in s._asdict().items():
             out[f"{case}/state/{field}"] = np.asarray(v)
     np.savez(out_path, **out)
@@ -177,7 +259,7 @@ def _port_walk(case, path):
         sim = DoomSim(cfg, "cpu")
         scene, pt, cfg = sim.scene, sim.portal_scene(), sim.config
     state = SimState(*(torch.as_tensor(data[f"{case}/state/{f}"]) for f in SimState._fields))
-    calls = {"walk_cross": [], "walk_records": []}
+    calls = {"walk_table": [], "walk_cross": [], "walk_records": []}
     origs = {n: getattr(P, n) for n in calls}
 
     def spy(name):
@@ -194,13 +276,13 @@ def _port_walk(case, path):
         for n, f in origs.items():
             setattr(P, n, f)
     cross, recs = calls["walk_cross"][0], calls["walk_records"][0]
-    return rec, words, aux, Wk.walk_cross_ref(*cross), pt, cross, recs
+    return rec, words, aux, Wk.walk_cross_ref(*cross), pt, calls["walk_table"][0], cross, recs
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_walk_matches_jax_bitwise(jax_walks, case):
     group, envs = CASES[case]
-    rec, words, aux, cross, pt, _, recs = _port_walk(group, jax_walks)
+    rec, words, aux, cross, pt, _, _, recs = _port_walk(group, jax_walks)
     want = np.load(jax_walks)
     rec, words, overflow = rec[envs], words[envs], aux["overflow"][envs]
     t, _, idx, live, *_ = (x[envs] for x in cross)
@@ -232,6 +314,86 @@ def test_walk_matches_jax_bitwise(jax_walks, case):
         assert (recs[16] is not None) == sel and (recs[8] is None) == sel
 
 
+def _bits(x):
+    x = np.asarray(x)
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_walk_table_matches_jax_bitwise(jax_walks, group):
+    """W0's plain version (`walk_table_ref`, on the arguments the port's
+    walk gives W0) against the JAX walk's own attribute table, endpoints
+    and cull, bitwise: the table (B, SD', 74) and p1, p2 as int32 bits;
+    on big levels the kept rows `ordv` equal to the first SV of JAX's
+    stable argsort and the overflow to its visible count > SV. The
+    level's `walk_static` equals the table's STATIC_COLS, the columns it
+    replaces, in every env (at the kept rows under the cull, `+ 0.0`)."""
+    from tpu_doom_torch.ops.walk import C_CA, STATIC_COLS
+    from tpu_doom_torch.render.portal import walk_table_ref
+
+    *_, pt, targs, _, _ = _port_walk(group, jax_walks)
+    table, p1, p2, ordv, overflow = walk_table_ref(*targs)
+    want = np.load(jax_walks)
+    key = f"{group}/walk_table/"
+    for name, got in (("table", table), ("p1", p1), ("p2", p2)):
+        assert got.shape == want[key + name].shape, name
+        got, exp = got.numpy(), want[key + name]
+        diff = _bits(got) != _bits(exp)
+        if name == "table":
+            # One deviation, XLA's: on rows whose ceiling atlas is all
+            # zeros, its base v `ay + n_rows * row_h` is 0 + (-1 * 0) =
+            # +0.0 in IEEE (here and on the card), and the compiled JAX
+            # walk gives -0.0. Only there, and only the sign of a zero.
+            off = diff[..., C_CA + 1]
+            assert bool((got[..., C_CA + 1][off] == 0.0).all())
+            assert bool((exp[..., C_CA + 1][off] == 0.0).all())
+            diff[..., C_CA + 1] = False
+        assert not diff.any(), (name, np.argwhere(diff)[:8])
+    sv = targs[10]
+    cull = key + "order" in want.files
+    assert (sv > 0) == cull == (ordv is not None)
+    assert cull == group.startswith("texstress")
+    static = pt["walk_static"]
+    if cull:
+        np.testing.assert_array_equal(ordv.numpy(), want[key + "order"][:, :sv])
+        np.testing.assert_array_equal(overflow.numpy(), want[key + "visible"] > sv)
+        static = static[ordv] + 0.0  # (B, SV, 40)
+    else:
+        assert not bool(overflow.any())
+    np.testing.assert_array_equal(_bits(static.expand(table.shape[0], -1, -1).numpy()),
+                                  _bits(table[:, :, STATIC_COLS].numpy()))
+    if group == "offsets":  # the offset, animated floor and scrolled u columns move
+        objoff, time_ = targs[2], targs[3]
+        assert bool((objoff != 0.0).all()) and bool((time_ > 0.0).all())
+        zero = walk_table_ref(targs[0], targs[1], torch.zeros_like(objoff),
+                              torch.zeros_like(time_), *targs[4:])[0]
+        moved = (zero != table).any(dim=(0, 1))
+        from tpu_doom_torch.ops.walk import C_FA, C_FC, C_FCB, P_A, P_LOW, PIECE0
+        assert all(bool(moved[c]) for c in (C_FC, C_FA, C_FCB, PIECE0 + P_LOW,
+                                             PIECE0 + 16 + P_A)), moved.nonzero()
+
+
+def test_walk_static_layout_is_w0s():
+    """`ops.walk.STATIC_COLS` is the column list W0 was built with
+    (csrc/walk_table.cu kStaticCols), and W0's level argument list is its
+    `Level` struct's, field for field."""
+    import re
+
+    from tpu_doom_torch import _build
+    from tpu_doom_torch.ops.walk import LEVEL_ROWS, STATIC_COLS
+
+    src = (_build.CSRC / "walk_table.cu").read_text()
+    cols = re.search(r"kStaticCols\[kStatic\] = \{([^}]*)\}", src).group(1)
+    assert [int(c) for c in cols.replace("\n", " ").split(",")] == STATIC_COLS
+    assert int(re.search(r"kStatic = (\d+);", src).group(1)) == len(STATIC_COLS)
+    body = re.search(r"struct Level \{(.*?)\n\};", src, re.S).group(1)
+    names = re.findall(r"\*\s*(\w+)", re.sub(r"//[^\n]*", "", body))
+    assert len(names) == 1 + len(LEVEL_ROWS) and names[0] == "stat"
+    short = {"ceil_cbase": "ceil_cb", "floor_cbase": "floor_cb", "piece_cbase": "piece_cb",
+             "sprite_center": "spr_center", "sprite_half": "spr_half"}
+    assert names[1:] == [short.get(k, k) for k, _ in LEVEL_ROWS]
+
+
 def test_w2_selection_form_matches_table_form(jax_walks):
     """W2's plain version from B4's selection (the big-level walk's form)
     gives the same bits as from the table on the same crossings, with and
@@ -261,7 +423,7 @@ def test_explicit_compaction_overflow_formula(jax_walks):
     is the formula the walk applied itself before W2 took the big levels."""
     from tpu_doom_torch.ops.walk import mask_bits_to_bool
 
-    rec, words, aux, cross, pt, _, recs = _port_walk("texstress_compact", jax_walks)
+    rec, words, aux, cross, pt, _, _, recs = _port_walk("texstress_compact", jax_walks)
     mask, ovf_in, kc = recs[6], recs[7], recs[14]
     assert kc == 4 and recs[8] is not None and recs[16] is None
     want = ovf_in | (mask_bits_to_bool(mask, K).sum(dim=1) > kc)

@@ -22,8 +22,10 @@ prints:
     kernels launched and device-busy ms per tick, the idle share against
     the unprofiled step + render time, the device ms per tick of each
     hand-written kernel, of the walk's sort and of the captured tick's
-    fallback flag (`set_condition_kernel`), and the host ms per tick
-    spent blocked in the per-frame fallback flag read (`aten::item`);
+    fallback flag (`set_condition_kernel`), then the launches and device
+    ms per tick of all other kernels (PyTorch's own) and of the 15 of them
+    with the most device ms, and the host ms per tick spent blocked in
+    the per-frame fallback flag read (`aten::item`);
   * the profiler's table of the ops with the most device time;
   * with --rollout, the same over --ticks ticks of `DoomSim.rollout` (the
     tick captured as CUDA graphs and replayed; the capture made first):
@@ -74,8 +76,10 @@ from tpu_doom_torch.render import portal as P  # noqa: E402
 KERNEL_NAMES = ("player_move_kernel", "render_portal_kernel",
                 "peel_resolve_kernel", "select_rows_kernel",
                 "scatter_live", "gather_cells_kernel", "classify_alpha_kernel",
-                "shade_portal_kernel", "depth_peel_kernel", "walk_cross_kernel",
-                "walk_records_kernel", "radixSort", "set_condition_kernel")
+                "shade_portal_kernel", "depth_peel_kernel", "walk_table_kernel",
+                "walk_cross_kernel", "walk_records_kernel", "radixSort",
+                "set_condition_kernel")
+TOP_OTHERS = 15  # the other kernels `report` lists, by device ms per tick
 
 
 def sync(device):
@@ -391,6 +395,19 @@ def report(tag, prof, n, t_tick):
         ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n
         print(f"[{tag}] {name}: {len(ev) / n:.2f} launches, {ms:.4f} device"
               f" ms per tick")
+    # The rest: PyTorch's own kernels (and the library's), by name.
+    others: dict = {}
+    for e in kernels:
+        if not any(name in e.name for name in KERNEL_NAMES):
+            n_us = others.setdefault(e.name, [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += e.time_range.elapsed_us()
+    rest_ms = sum(us for _, us in others.values()) / 1e3 / n
+    print(f"[{tag}] other kernels: {sum(c for c, _ in others.values()) / n:.1f} launches,"
+          f" {rest_ms:.4f} device ms per tick; the {TOP_OTHERS} with the most:")
+    for name, (count, us) in sorted(others.items(), key=lambda kv: -kv[1][1])[:TOP_OTHERS]:
+        print(f"[{tag}]   {count / n:8.2f} launches, {us / 1e3 / n:.4f} ms per tick:"
+              f" {name[:140]}")
     return busy_ms
 
 if __name__ == "__main__":

@@ -42,12 +42,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # rows, state8, out, B, M, radius, height, dt, substeps, noclip, stream
     "tdt_player_move": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P],
-    # records, words, cam, shear, dxz, sky, tex, hole, cmap, idx, cov,
-    # B, R, W, H, n_words, hc, S1, holeless, per_env, tex_stride, p11,
-    # n_rows, stream
-    "tdt_render_portal": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                          _P],
+    # records, words, cam, shear, dxz, sky_x, sky_y, sky_tex, tex, hole,
+    # cmap, idx, cov, B, R, W, H, n_words, hc, hs, ws, S1, holeless,
+    # per_env, tex_stride, p11, n_rows, stream
+    "tdt_render_portal": [_P] * 13 + [_I] * 12 + [_F, _I, _P],
     # rows, attrs, grid, ybounds, bounds, bins (scratch), out, B, T, P,
     # width, n_layers, tile_p, chunk_t, stream
     "tdt_peel_resolve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -69,16 +67,18 @@ SIGNATURES = {
     # rows, grid, bins (scratch), out_z, out_id, B, T, P, width, n_layers,
     # stream
     "tdt_depth_peel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # records, words, cam, shear, dxz, sky, tex, hole, cmap, idx, cov,
-    # B, R, W, H, n_words, hc, S1, holeless, p11, n_rows, ablate, zero,
-    # stream
-    "tdt_render_portal_ablated": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                                  _I, _P],
+    # records, words, cam, shear, dxz, sky_x, sky_y, sky_tex, tex, hole,
+    # cmap, idx, cov, B, R, W, H, n_words, hc, hs, ws, S1, holeless, p11,
+    # n_rows, ablate, zero, stream
+    "tdt_render_portal_ablated": [_P] * 13 + [_I] * 10 + [_F] + [_I] * 3 + [_P],
     # x, y, fast, ref, n, stream (B2's remainder against fmodf; tests only)
     "tdt_fmod_check": [_P, _P, _P, _P, _I, _P],
     # idx, tab, out, n, S, iters, grid, variant, stream
     "tdt_onehot_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # level (a host array of device pointers), its length, objoff, time,
+    # lights, right, fwd, o, table, p1, p2, ordv (or null), overflow, B, S,
+    # D, O, L, SV, xvmax, near, far, flats_w, walls_w, stream (W0)
+    "tdt_walk_table": [_P, _I] + [_P] * 11 + [_I] * 6 + [_F] * 5 + [_P],
     # p1, p2, o, d, table, cyw, shear, t, u, idx, live, top, bot, mask,
     # B, SD, C, W, K, near, far, p11, H, stream (W1)
     "tdt_walk_cross": [_P] * 14 + [_I] * 5 + [_F] * 4 + [_P],

@@ -29,9 +29,23 @@
 //     row's keeps its channels, and on a wall its texel column and
 //     colormap row, which do not depend on the row; a pixel reads and
 //     computes only what its kind uses (nothing covers: no channel but
-//     the kind; the sky: the sky image; walls: the texture row; flats:
-//     the flat address and distance; portal_shade.cuh), and texel reads
-//     go through the read-only cache.
+//     the kind; the sky: one texel of the sky texture; walls: the texture
+//     row; flats: the flat address and distance; portal_shade.cuh), and
+//     texel reads go through the read-only cache.
+// The sky comes as coordinates, not as an image: the sky's texel
+// coordinates are separable, so the walk gives each column its texel
+// column sky_x[b, col] and each image row its texel row sky_y[b, row]
+// (render/portal.py:sky_coords; y = row + 0.5, which the pitch's shear
+// does not move), and a sky pixel reads sky_tex[sky_y, sky_x] (u8, 32 KB
+// at 256 x 128, through the read-only cache). The band's sky rows are
+// staged beside its ndc, the strip's sky columns beside them. (The JAX
+// package hands its TPU kernel a (B, H, W) f32 sky image, because a
+// Pallas TPU kernel cannot gather cheaply.)
+// Outputs: the palette index as u8 and the coverage as bool, the frames'
+// own types (the JAX package's f32 outputs after its casts). A warp stores
+// one row of its 32 columns at a time: 32 neighbouring bytes, one 32-byte
+// sector per store instruction, as many instructions as the f32 stores
+// took and a quarter of their bytes.
 // Lanes are the strip's 32 columns: a warp shades one row of 32 columns
 // at a time, which keeps its stores coalesced and its lanes on rows of
 // one kind more often than a warp down a column would (that layout took
@@ -71,6 +85,7 @@ constexpr int kCols = 32;      // columns per block, one per lane
 constexpr int kMaxGroups = 8;  // row groups per block, one warp each
 constexpr int kRows = 12;      // contiguous rows per thread
 constexpr int kMinBlocks = 5;  // resident blocks per SM: <= 51 registers
+constexpr int kBandMax = kMaxGroups * kRows;  // rows of a band at most
 constexpr int kStaticSmem = 48 * 1024;
 
 // A record's span over one column in shared memory: rows [lo, hi) in
@@ -93,14 +108,21 @@ __global__ void __launch_bounds__(kCols * kMaxGroups, kMinBlocks)
 render_portal_kernel(
     const float* __restrict__ records, const int32_t* __restrict__ words,
     const float* __restrict__ cam, const float* __restrict__ shear,
-    const float* __restrict__ dxz, const float* __restrict__ sky,
+    const float* __restrict__ dxz, const int32_t* __restrict__ sky_x,
+    const int32_t* __restrict__ sky_y, const uint8_t* __restrict__ sky_tex,
     const void* __restrict__ tex, const int8_t* __restrict__ hole,
-    const int8_t* __restrict__ cmap, float* __restrict__ out_idx,
-    float* __restrict__ out_cov, int R, int W, int H, int n_words, int hc,
-    int S1, int holeless, int per_env, int tex_stride, float p11,
-    int n_rows, int zero) {
-  extern __shared__ uint32_t s_span[];  // R x kCols
-  float* s_ndc = reinterpret_cast<float*>(s_span + R * kCols);  // band rows
+    const int8_t* __restrict__ cmap, uint8_t* __restrict__ out_idx,
+    uint8_t* __restrict__ out_cov, int R, int W, int H, int n_words, int hc,
+    int hs, int ws, int S1, int holeless, int per_env, int tex_stride,
+    float p11, int n_rows, int zero) {
+  // Shared memory: the per-column and per-row arrays first, at offsets
+  // fixed at compile time (no register holds their addresses), then the
+  // spans.
+  extern __shared__ uint32_t s_mem[];
+  int* s_sky_col = reinterpret_cast<int*>(s_mem);  // kCols: the strip's sky columns
+  int* s_sky = s_sky_col + kCols;                   // kBandMax: band rows' sky offsets
+  float* s_ndc = reinterpret_cast<float*>(s_sky + kBandMax);  // kBandMax: band rows' ndc
+  uint32_t* s_span = reinterpret_cast<uint32_t*>(s_ndc + kBandMax);  // R x kCols
   const int groups = blockDim.y;
   const int band = groups * kRows;
   const int col0 = blockIdx.x * kCols;
@@ -110,7 +132,7 @@ render_portal_kernel(
   const int n_threads = kCols * groups;
   const float* rec_env = records + (size_t)b * R * kNch * W;
 
-  // --- 1. stage the strip's spans and the band's ndc ---------------------
+  // --- 1. stage the strip's spans, the band's ndc and sky rows ----------
   for (int i = tid; i < R * kCols; i += n_threads) {
     const int r = i / kCols;
     const int col = col0 + i % kCols;
@@ -128,6 +150,14 @@ render_portal_kernel(
   for (int i = tid; i < band; i += n_threads) {
     const float y = (float)(row0 + i) + 0.5f;
     s_ndc[i] = 1.0f - 2.0f * y / (float)H + shear_b;
+    // The sky texture's row offset of each band row (clamped: a row past
+    // H is never read).
+    const int sy = row0 + i < H ? sky_y[(size_t)b * H + row0 + i] : 0;
+    s_sky[i] = min(max(sy, 0), hs - 1) * ws;
+  }
+  for (int i = tid; i < kCols; i += n_threads) {
+    const int sx = col0 + i < W ? sky_x[(size_t)b * W + col0 + i] : 0;
+    s_sky_col[i] = min(max(sx, 0), ws - 1);
   }
   __syncthreads();
 
@@ -199,7 +229,10 @@ render_portal_kernel(
     // path, on its zero channels, so that the variant removes the walk
     // and keeps the shade.
     if (!(kAblate & kNoClassify) && !reads_texel(ch[0])) {
-      shade_untextured(ch[0], sky + o, out_idx + o, out_cov + o);
+      // Nothing covers (kind 0): 0 and not covered; the sky: its texel.
+      const bool is_sky = ch[0] != 0.0f;
+      out_idx[o] = is_sky ? __ldg(sky_tex + s_sky[row - row0] + s_sky_col[lane_col]) : 0;
+      out_cov[o] = is_sky;
       continue;
     }
     if (!loaded) {
@@ -242,28 +275,30 @@ render_portal_kernel(
     if constexpr (kAblate & kNoClassify) {
       // Kind 0 everywhere: the plain version's (0, 0), which v2 and the
       // hole flag reach through `zero` so that nvcc keeps their work.
-      out_idx[o] = v2 * (float)zero;
-      out_cov[o] = (float)((int)is_hole * zero);
+      out_idx[o] = (uint8_t)(int)(v2 * (float)zero);
+      out_cov[o] = ((int)is_hole * zero) != 0;
     } else {
-      shade_write(v2, is_hole, out_idx + o, out_cov + o);
+      // v2 is a palette index, 0..255: the u8 store is exact.
+      out_idx[o] = is_hole ? 0 : (uint8_t)(int)v2;
+      out_cov[o] = !is_hole;
     }
   }
 }
 
 template <int kAblate>
 int launch(const void* records, const void* words, const void* cam,
-           const void* shear, const void* dxz, const void* sky,
-           const void* tex, const void* hole, const void* cmap, void* out_idx,
-           void* out_cov, int B, int R, int W, int H, int n_words, int hc,
+           const void* shear, const void* dxz, const void* sky_x,
+           const void* sky_y, const void* sky_tex, const void* tex,
+           const void* hole, const void* cmap, void* out_idx, void* out_cov,
+           int B, int R, int W, int H, int n_words, int hc, int hs, int ws,
            int S1, int holeless, int per_env, int tex_stride, float p11,
            int n_rows, int zero, void* stream) {
-  if (H < 1 || H > (int)kRowMask) return (int)cudaErrorInvalidValue;
+  if (H < 1 || H > (int)kRowMask || hs < 1 || ws < 1) return (int)cudaErrorInvalidValue;
   // Equal bands of whole row groups, at most kMaxGroups groups each.
-  const int per_band = kMaxGroups * kRows;
-  const int n_bands = (H + per_band - 1) / per_band;
+  const int n_bands = (H + kBandMax - 1) / kBandMax;
   const int groups = ((H + n_bands - 1) / n_bands + kRows - 1) / kRows;
   const int band = groups * kRows;
-  const size_t smem = ((size_t)R * kCols + band) * sizeof(uint32_t);
+  const size_t smem = ((size_t)R * kCols + 2 * kBandMax + kCols) * sizeof(uint32_t);
   if (smem > kStaticSmem) {
     // Above 48 KB only with the opt-in; a card that refuses it fails the
     // call here, and nothing is launched. The refusal is also the runtime's
@@ -280,10 +315,11 @@ int launch(const void* records, const void* words, const void* cam,
   dim3 grid((W + kCols - 1) / kCols, (H + band - 1) / band, B);
   render_portal_kernel<kAblate><<<grid, block, smem, (cudaStream_t)stream>>>(
       (const float*)records, (const int32_t*)words, (const float*)cam,
-      (const float*)shear, (const float*)dxz, (const float*)sky,
-      tex, (const int8_t*)hole, (const int8_t*)cmap, (float*)out_idx,
-      (float*)out_cov, R, W, H, n_words, hc, S1, holeless, per_env,
-      tex_stride, p11, n_rows, zero);
+      (const float*)shear, (const float*)dxz, (const int32_t*)sky_x,
+      (const int32_t*)sky_y, (const uint8_t*)sky_tex, tex, (const int8_t*)hole,
+      (const int8_t*)cmap, (uint8_t*)out_idx, (uint8_t*)out_cov, R, W, H,
+      n_words, hc, hs, ws, S1, holeless, per_env, tex_stride, p11, n_rows,
+      zero);
   return (int)cudaGetLastError();
 }
 
@@ -303,13 +339,14 @@ __global__ void fmod_check_kernel(const float* __restrict__ x,
 
 extern "C" int tdt_render_portal(
     const void* records, const void* words, const void* cam, const void* shear,
-    const void* dxz, const void* sky, const void* tex, const void* hole,
-    const void* cmap, void* out_idx, void* out_cov, int B, int R, int W, int H,
-    int n_words, int hc, int S1, int holeless, int per_env, int tex_stride,
-    float p11, int n_rows, void* stream) {
-  return launch<0>(records, words, cam, shear, dxz, sky, tex, hole, cmap,
-                   out_idx, out_cov, B, R, W, H, n_words, hc, S1, holeless,
-                   per_env, tex_stride, p11, n_rows, 0, stream);
+    const void* dxz, const void* sky_x, const void* sky_y, const void* sky_tex,
+    const void* tex, const void* hole, const void* cmap, void* out_idx,
+    void* out_cov, int B, int R, int W, int H, int n_words, int hc, int hs,
+    int ws, int S1, int holeless, int per_env, int tex_stride, float p11,
+    int n_rows, void* stream) {
+  return launch<0>(records, words, cam, shear, dxz, sky_x, sky_y, sky_tex, tex,
+                   hole, cmap, out_idx, out_cov, B, R, W, H, n_words, hc, hs, ws,
+                   S1, holeless, per_env, tex_stride, p11, n_rows, 0, stream);
 }
 
 // B2 in the global-table mode with the stages of `ablate` switched off;
@@ -317,15 +354,17 @@ extern "C" int tdt_render_portal(
 // cudaErrorInvalidValue and launches nothing.
 extern "C" int tdt_render_portal_ablated(
     const void* records, const void* words, const void* cam, const void* shear,
-    const void* dxz, const void* sky, const void* tex, const void* hole,
-    const void* cmap, void* out_idx, void* out_cov, int B, int R, int W, int H,
-    int n_words, int hc, int S1, int holeless, float p11, int n_rows,
-    int ablate, int zero, void* stream) {
+    const void* dxz, const void* sky_x, const void* sky_y, const void* sky_tex,
+    const void* tex, const void* hole, const void* cmap, void* out_idx,
+    void* out_cov, int B, int R, int W, int H, int n_words, int hc, int hs,
+    int ws, int S1, int holeless, float p11, int n_rows, int ablate, int zero,
+    void* stream) {
 #define TDT_ABLATED(mask)                                                     \
   case mask:                                                                  \
-    return launch<mask>(records, words, cam, shear, dxz, sky, tex, hole,      \
-                        cmap, out_idx, out_cov, B, R, W, H, n_words, hc, S1,  \
-                        holeless, 0, 0, p11, n_rows, zero, stream);
+    return launch<mask>(records, words, cam, shear, dxz, sky_x, sky_y,        \
+                        sky_tex, tex, hole, cmap, out_idx, out_cov, B, R, W,  \
+                        H, n_words, hc, hs, ws, S1, holeless, 0, 0, p11,      \
+                        n_rows, zero, stream);
   switch (ablate) {
     TDT_ABLATED(0)
     TDT_ABLATED(kNoClassify)

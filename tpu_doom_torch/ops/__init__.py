@@ -26,7 +26,7 @@ from .raster import (
     shade_portal,
     shade_portal_ref,
 )
-from .walk import walk_cross, walk_cross_ref, walk_records, walk_records_ref
+from .walk import walk_cross, walk_cross_ref, walk_records, walk_records_ref, walk_table
 
 # name -> wrapper, for resetting and reading the launch counts.
 KERNELS = {
@@ -39,6 +39,7 @@ KERNELS = {
     "classify_alpha": classify_alpha,
     "shade_portal": shade_portal,
     "depth_peel": depth_peel,
+    "walk_table": walk_table,
     "walk_cross": walk_cross,
     "walk_records": walk_records,
 }
@@ -110,6 +111,7 @@ __all__ = [
     "pack_triangle_rows",
     "depth_peel",
     "depth_peel_ref",
+    "walk_table",
     "walk_cross",
     "walk_cross_ref",
     "walk_records",

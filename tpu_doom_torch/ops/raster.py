@@ -5,10 +5,16 @@ B2 replaces `tpu_doom/ops/raster_pallas.py:render_portal_fused_pallas`
 whose rows cover it (masked-family records only where their texel alpha
 bit is set), then shades: flat/wall texel coordinates, the compact texel
 table `tex[lin] + 128`, the transparency bit from `hole_bytes[lin >> 3]`,
-the colormap row from light and distance, and the per-env sky image.
-The TPU kernel's one-hot MXU lookups, SMEM gating plans, per-tile hole
-gate and 128-lane padding only skip work or serve the TPU's layout; here
-they are indexed loads, which changes no output.
+the colormap row from light and distance, and on the sky the sky
+texture at the pixel's texel row and column. The TPU kernel's one-hot MXU
+lookups, SMEM gating plans, per-tile hole gate and 128-lane padding only
+skip work or serve the TPU's layout; here they are indexed loads, which
+changes no output. So is its sky image: the TPU kernel takes a (B, H, W)
+f32 image (two row gathers made before it, as it cannot gather cheaply);
+B2 takes the separable coordinates (sky_x (B, W), sky_y (B, H) i32) and
+the u8 texture and reads one texel per sky pixel. It writes the frames'
+own types, u8 indices and bool coverage: the TPU kernel's f32 outputs
+after the casts the JAX package makes of them.
 CUDA design (csrc/render_portal.cu): a block owns 32 columns of one env
 over a band of up to 96 rows; it stages every record's span over those
 columns once, as exact integer row ranges in shared memory, and each
@@ -206,18 +212,30 @@ def _ndc_rows(H: int, device):
     return y, 1.0 - div(2.0 * y, float(H))
 
 
-def render_portal_fused_ref(records, words, cam, hc: int, dxz, sky_img,
-                            tex, hole_bytes, cmap_i8, height: int,
+def sky_gather(sky_x, sky_y, sky_tex):
+    """The sky image (B, H, W) f32 from its separable texel coordinates
+    sky_x (B, W) and sky_y (B, H) and the colormapped sky texture (hs,
+    ws): two row gathers."""
+    H = sky_y.shape[1]
+    rows = sky_tex.to(torch.float32)[sky_y.long()]  # (B, H, ws)
+    return torch.gather(rows, 2, sky_x.long()[:, None, :].expand(-1, H, -1))
+
+
+def render_portal_fused_ref(records, words, cam, hc: int, dxz, sky_x, sky_y,
+                            sky_tex, tex, hole_bytes, cmap_i8, height: int,
                             p11: float, n_rows: int, shear=None):
     """Plain version of B2.
 
     records (B, R, 16, W) f32; words (B, K, n_words, W) i32; cam (B, 3);
-    dxz (B, 2, W); sky_img (B, H, W) f32; tex either the global compact
-    table (S1, 128) s8 (texel - 128), with hole_bytes (Sh, 128) s8 or
-    None for a holeless level, or the per-env active tables (B, S1, 128)
-    i16 (texel 0..255, 256 = hole; hole_bytes unused); cmap_i8 (S2, 128)
-    s8; shear (B,) or None. Returns (palette index, covered), each
-    (B, H, W) f32."""
+    dxz (B, 2, W); the sky's texel column per image column sky_x (B, W)
+    i32 and row per image row sky_y (B, H) i32, and the colormapped sky
+    texture sky_tex (hs, ws) u8; tex either the global compact table (S1,
+    128) s8 (texel - 128), with hole_bytes (Sh, 128) s8 or None for a
+    holeless level, or the per-env active tables (B, S1, 128) i16 (texel
+    0..255, 256 = hole; hole_bytes unused); cmap_i8 (S2, 128) s8; shear
+    (B,) or None. Returns (palette index (B, H, W) u8, covered (B, H, W)
+    bool): the JAX package's f32 outputs after its casts
+    (`idx.astype(uint8)`, `cov > 0.5`)."""
     B = records.shape[0]
     dev = records.device
     p11 = f32(p11)
@@ -239,11 +257,23 @@ def render_portal_fused_ref(records, words, cam, hc: int, dxz, sky_img,
         v1 = torch.clamp_max(v, 255)
     else:
         v1, hole = _global_texel(tex, hole_bytes, lin)
-    return _shade_out(v1, hole, crow, covered0, is_sky, sky_img, cmap_i8)
+    idx, cov = _shade_out(v1, hole, crow, covered0, is_sky,
+                          sky_gather(sky_x, sky_y, sky_tex), cmap_i8)
+    return idx.to(torch.uint8), cov > 0.5
 
 
-def render_portal_fused(records, words, cam, hc: int, dxz, sky_img, tex,
-                        hole_bytes, cmap_i8, height: int, p11: float,
+def check_sky(sky_x, sky_y, sky_tex, B: int, H: int, W: int, name: str):
+    """Raise unless the sky operands are B2's: (B, W) and (B, H) i32
+    coordinates and a 2-D u8 texture."""
+    if (sky_x.shape != (B, W) or sky_y.shape != (B, H) or sky_tex.dim() != 2
+            or (sky_x.dtype, sky_y.dtype, sky_tex.dtype)
+            != (torch.int32, torch.int32, torch.uint8)):
+        raise ValueError(f"{name}: the sky operands must be sky_x (B, W) i32, sky_y"
+                         " (B, H) i32 and sky_tex (hs, ws) u8")
+
+
+def render_portal_fused(records, words, cam, hc: int, dxz, sky_x, sky_y, sky_tex,
+                        tex, hole_bytes, cmap_i8, height: int, p11: float,
                         n_rows: int, shear=None):
     """Kernel B2 for CUDA tensors, its plain version for CPU tensors
     (arguments as `render_portal_fused_ref`). Per-env tables may be a
@@ -251,7 +281,7 @@ def render_portal_fused(records, words, cam, hc: int, dxz, sky_img, tex,
     takes their env stride."""
     if records.device.type == "cpu":
         return render_portal_fused_ref(
-            records, words, cam, hc, dxz, sky_img, tex, hole_bytes,
+            records, words, cam, hc, dxz, sky_x, sky_y, sky_tex, tex, hole_bytes,
             cmap_i8, height, p11, n_rows, shear)
     if records.device.type != "cuda":
         raise ValueError(f"render_portal_fused: unsupported device {records.device}")
@@ -261,9 +291,10 @@ def render_portal_fused(records, words, cam, hc: int, dxz, sky_img, tex,
     per_env = tex.dim() == 3
     if (nch != NCH or R != K * RECORDS_PER_CROSSING or words.shape != (B, K, n_words, W)
             or cam.shape != (B, 3) or dxz.shape != (B, 2, W)
-            or sky_img.shape != (B, H, W) or tex.shape[-1] != 128
+            or tex.shape[-1] != 128
             or (per_env and tex.shape[0] != B) or cmap_i8.shape[1] != 128):
         raise ValueError("render_portal_fused: bad shapes")
+    check_sky(sky_x, sky_y, sky_tex, B, H, W, "render_portal_fused")
     tex_dtype = torch.int16 if per_env else torch.int8
     if (records.dtype, words.dtype, tex.dtype, cmap_i8.dtype) != (
             torch.float32, torch.int32, tex_dtype, torch.int8):
@@ -272,7 +303,7 @@ def render_portal_fused(records, words, cam, hc: int, dxz, sky_img, tex,
     if shear is None:
         shear = torch.zeros((B,), dtype=torch.float32, device=dev)
     args = [t.contiguous() for t in (records, words, cam.float(), shear.float(),
-                                     dxz.float(), sky_img.float())]
+                                     dxz.float(), sky_x, sky_y, sky_tex)]
     if per_env:
         if tex.stride(2) != 1 or tex.stride(1) != 128:
             tex = tex.contiguous()
@@ -284,14 +315,14 @@ def render_portal_fused(records, words, cam, hc: int, dxz, sky_img, tex,
     hole = (torch.zeros((1, 128), dtype=torch.int8, device=dev) if holeless
             else hole_bytes.contiguous())
     cmap = cmap_i8.contiguous()
-    idx = torch.empty((B, H, W), dtype=torch.float32, device=dev)
-    cov = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
+    cov = torch.empty((B, H, W), dtype=torch.bool, device=dev)
     lib = load()
     check(lib.tdt_render_portal(
         *[t.data_ptr() for t in args], tex.data_ptr(), hole.data_ptr(),
         cmap.data_ptr(), idx.data_ptr(), cov.data_ptr(), B, R, W, H, n_words,
-        int(hc), S1, int(holeless), int(per_env), tex_stride, f32(p11),
-        int(n_rows), torch.cuda.current_stream(dev).cuda_stream,
+        int(hc), sky_tex.shape[0], sky_tex.shape[1], S1, int(holeless), int(per_env),
+        tex_stride, f32(p11), int(n_rows), torch.cuda.current_stream(dev).cuda_stream,
     ), "render_portal_fused")
     render_portal_fused.launches += 1
     render_portal_fused.per_env_launches += int(per_env)

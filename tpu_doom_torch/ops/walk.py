@@ -1,11 +1,19 @@
-"""The column walk's two kernels, W1 and W2, each with its plain PyTorch
-version.
+"""The column walk's three kernels, W0, W1 and W2, each with its plain
+PyTorch version.
 
-Neither replaces a Pallas kernel: the JAX package's walk,
+None replaces a Pallas kernel: the JAX package's walk,
 `tpu_doom/render/portal.py:_walk_env`, runs as XLA ops under `vmap`
 inside the jitted render (a few loop fusions and one stable
 multi-operand `lax.sort` carrying (t, u, id)). These are the port's own
-kernels for that code. Per env and screen column:
+kernels for that code.
+
+W0 `walk_table` (csrc/walk_table.cu `walk_table_kernel`), per env: the
+(B, S+D, 74) attribute table of the walk rows (segs, then sprites) and
+their endpoints, and on big levels the visible-seg cull: the first SV
+rows of the stable partition visible-first, their level row ids and the
+env's overflow. Its plain version is `render/portal.py:walk_table_ref`.
+
+W1 and W2, per env and screen column:
 
 W1 `walk_cross` (csrc/walk.cu `walk_cross_kernel`): crosses the column's
 ray with every walk row (segs, then sprite billboards), keeps the K
@@ -33,10 +41,12 @@ version's parts.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .._build import check, load
-from .._numerics import to_i32
+from .._numerics import f32, to_i32
 
 BIG_T = 1e30  # finite depth sentinel for invalid crossings
 SMALL_LEVEL_ROWS = 192  # S+D walk rows of a small level (no cull, AUTO compaction 8)
@@ -61,6 +71,14 @@ PIECE0, PIECE_C = 26, 16
 TABLE_COLS = PIECE0 + 3 * PIECE_C
 (P_EXISTS, P_MASKED, P_LOW, P_HIGH, P_A, P_B, P_T1, P_T2, P_LIGHT, P_AB,
  P_EXMASK, P_CB, P_CID) = 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15
+P_CLS = (P_EXISTS, P_MASKED, P_B, P_T1, P_T2, P_AB + 2, P_AB + 3, P_EXMASK, P_CID)
+# The columns that depend on no env: the flags, the tile sizes, the
+# texture rows, the pieces' u span and the cell ids. A level's
+# `walk_static` (render/portal.py:_walk_static) holds them in this order,
+# and W0 copies them (csrc/walk_table.cu kStaticCols).
+STATIC_COLS = ([C_HB, C_FCS, C_FFS, C_BCS, C_BFS, C_CA + 2, C_CA + 3, C_FA + 2,
+                C_FA + 3, C_SOLID, C_SPRITE, C_CCID, C_FCID]
+               + [PIECE0 + pi * PIECE_C + j for pi in range(3) for j in P_CLS])
 # The clip-window prefix's columns: has_back, the four row heights, solid.
 PREFIX_COLS = [C_HB, C_CEILROW, C_FLOORROW, C_BCROW, C_BFROW, C_SOLID]
 NEG, POS = -1e9, 1e9
@@ -95,6 +113,96 @@ def mask_bits_to_bool(mask, K: int):
     """(B,) int32 mask -> (B, K) bool, bit k of each env."""
     bits = torch.arange(K, dtype=torch.int32, device=mask.device)
     return ((mask[:, None] >> bits) & 1) > 0
+
+
+# ---------------------------------------------------------------------------
+# W0: the attribute table and the visible-row cull.
+# ---------------------------------------------------------------------------
+
+# The level's row arrays W0 reads, in csrc/walk_table.cu's `Level` order
+# after walk_static: (key, dtype); "cbase" keys take the layout's suffix.
+LEVEL_ROWS = (
+    ("f_ceil", torch.float32), ("f_floor", torch.float32),
+    ("b_ceil", torch.float32), ("b_floor", torch.float32),
+    ("f_ceil_obj", torch.int32), ("f_floor_obj", torch.int32),
+    ("b_ceil_obj", torch.int32), ("b_floor_obj", torch.int32),
+    ("flat_light", torch.int32),
+    ("ceil_atlas", torch.float32), ("floor_atlas", torch.float32),
+    ("piece_low", torch.float32), ("piece_high", torch.float32),
+    ("piece_s1", torch.float32), ("piece_scroll", torch.float32),
+    ("piece_obj", torch.int32), ("piece_light", torch.int32),
+    ("piece_atlas", torch.float32),
+    ("ceil_cbase", torch.float32), ("floor_cbase", torch.float32),
+    ("piece_cbase", torch.float32),
+    ("p1", torch.float32), ("p2", torch.float32),
+    ("sprite_center", torch.float32), ("sprite_half", torch.float32),
+    ("hmin", torch.float32), ("hmax", torch.float32),
+)
+NOT_PER_ROW = ("p1", "p2", "sprite_center", "sprite_half", "hmin", "hmax")
+
+
+def level_arrays(pt, aligned: bool) -> list:
+    """The level arrays W0 reads from the portal scene `pt`: walk_static,
+    then LEVEL_ROWS' (the texel bases of the aligned layout where
+    `aligned`)."""
+    sfx = "_al" if aligned else ""
+    return [pt["walk_static"]] + [pt[k + sfx if k.endswith("cbase") else k]
+                                  for k, _ in LEVEL_ROWS]
+
+
+def walk_table(pt, lights_f, objoff, time, right, fwd, o, p00: float, near: float,
+               far: float, sv: int, flats_w: float, walls_w: float, aligned: bool):
+    """W0 for CUDA tensors, its plain version for CPU tensors (arguments
+    and outputs as `render.portal.walk_table_ref`: (table, p1, p2, ordv or
+    None, overflow)). The kernel copies the columns that depend on no env
+    from the level's `walk_static` and computes the others."""
+    if time.device.type == "cpu":
+        from ..render.portal import walk_table_ref
+
+        return walk_table_ref(pt, lights_f, objoff, time, right, fwd, o, p00, near,
+                              far, sv, flats_w, walls_w, aligned)
+    if time.device.type != "cuda":
+        raise ValueError(f"walk_table: unsupported device {time.device}")
+    B = time.shape[0]
+    SD, S = pt["has_back"].shape[0], pt["p1"].shape[0]
+    level = level_arrays(pt, aligned)
+    dtypes = [torch.float32] + [dt for _, dt in LEVEL_ROWS]
+    if (level[0].shape != (SD, len(STATIC_COLS)) or pt["p2"].shape != (S, 2)
+            or pt["sprite_half"].shape != (SD - S,) or not 0 <= sv < SD
+            or any(x.shape[0] != SD for (k, _), x in zip(LEVEL_ROWS, level[1:])
+                   if k not in NOT_PER_ROW)
+            or pt["hmin"].numel() != 1 or pt["hmax"].numel() != 1
+            or objoff.dim() != 2 or objoff.shape[0] != B or lights_f.dim() != 2
+            or lights_f.shape[0] != B
+            or any(x.shape != (B, 2) for x in (right, fwd, o))):
+        raise ValueError("walk_table: bad shapes")
+    if (any(x.dtype != dt for x, dt in zip(level, dtypes))
+            or any(x.dtype != torch.float32 for x in (lights_f, objoff, time, right,
+                                                       fwd, o))):
+        raise ValueError("walk_table: bad dtypes")
+    level = [x.contiguous() for x in level]
+    env = [x.contiguous() for x in (objoff, time, lights_f, right, fwd, o)]
+    dev = time.device
+    SDo = sv or SD
+    table = torch.empty((B, SDo, TABLE_COLS), dtype=torch.float32, device=dev)
+    p1, p2 = (torch.empty((B, SDo, 2), dtype=torch.float32, device=dev) for _ in range(2))
+    ordv = torch.empty((B, sv), dtype=torch.int64, device=dev) if sv else None
+    overflow = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return table, p1, p2, ordv, overflow.fill_(False)
+    ptrs = (ctypes.c_void_p * len(level))(*(x.data_ptr() for x in level))
+    check(load().tdt_walk_table(
+        ctypes.addressof(ptrs), len(level), *(x.data_ptr() for x in env),
+        table.data_ptr(), p1.data_ptr(), p2.data_ptr(),
+        0 if ordv is None else ordv.data_ptr(), overflow.data_ptr(),
+        B, S, SD - S, objoff.shape[1], lights_f.shape[1], sv, f32(1.0 / p00),
+        near, far, flats_w, walls_w, torch.cuda.current_stream(dev).cuda_stream,
+    ), "walk_table")
+    walk_table.launches += 1
+    return table, p1, p2, ordv, overflow
+
+
+walk_table.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -14,18 +14,21 @@ triangle path (kernel B3, or B9 under `portal_jnp`) instead.
 
 The JAX walk selects per-crossing attributes with exact one-hot matmuls;
 here they are indexed loads. `vmap` becomes the leading env dimension:
-per-seg tables are (B, SD, C), crossings (B, K, W). The per-(env, row)
-attribute table is built here with tensor ops; kernel W1
-(`ops.walk.walk_cross`) then crosses every column's ray with every row,
-keeps the K nearest and runs the clip window, and kernel W2
-(`ops.walk.walk_records`) compacts the crossings and writes the span
-records and alpha words, on every level.
+per-seg tables are (B, SD, C), crossings (B, K, W). Kernel W0
+(`ops.walk.walk_table`) builds the per-(env, row) attribute table (its
+per-level columns precomputed once, `walk_static`) and on big levels the
+visible-seg cull; kernel W1 (`ops.walk.walk_cross`) then crosses every
+column's ray with every row, keeps the K nearest and runs the clip
+window, and kernel W2 (`ops.walk.walk_records`) compacts the crossings
+and writes the span records and alpha words, on every level. B2 takes
+the sky as its separable texel coordinates (`sky_coords`) and the u8 sky
+texture, and writes the frames as u8 / bool.
 
 Big levels (more than 192 walk rows, segs + sprites, at the shipped
 defaults) take the big-level walk:
 * the visible-seg cull (`portal_visible_segs`, on any level where
-  0 < SV < SD): a conservative per-row test keeps at most SV rows per env
-  before the crossing math; envs with more visible rows overflow;
+  0 < SV < SD; in W0): a conservative per-row test keeps at most SV rows
+  per env before the crossing math; envs with more visible rows overflow;
 * when crossing compaction is off, kernel B4 (`ops.raster.select_rows`)
   selects every attribute column at every crossing in one pass, and W2
   reads that selection instead of the table;
@@ -54,8 +57,37 @@ from ..ops.raster import (
     scatter_live,
     select_rows,
     shade_portal,
+    sky_gather,
 )
-from ..ops.walk import SMALL_LEVEL_ROWS, compact_order, walk_cross, walk_records
+from ..ops.walk import (
+    C_BCS,
+    C_BFS,
+    C_CA,
+    C_CCID,
+    C_FA,
+    C_FCID,
+    C_FCS,
+    C_FFS,
+    C_HB,
+    C_SOLID,
+    C_SPRITE,
+    P_AB,
+    P_B,
+    P_CID,
+    P_EXISTS,
+    P_EXMASK,
+    P_MASKED,
+    P_T1,
+    P_T2,
+    PIECE0,
+    PIECE_C,
+    SMALL_LEVEL_ROWS,
+    STATIC_COLS,
+    compact_order,
+    walk_cross,
+    walk_records,
+    walk_table,
+)
 from ..sim.lights import light_table_u8
 from .camera import tan_f32
 from .raster import ANIM_FPS, anim_atlas_uv, render_frames, sky_x_texel, sky_y_texel
@@ -264,11 +296,41 @@ def _pack_compact_cells(t: PortalTable, arrays):
     return tex_i8, hole_bytes, cmap_i8, tex_full, bases
 
 
+def _walk_static(out) -> np.ndarray:
+    """The attribute table's columns that depend on no env (the flags,
+    tile sizes, texture rows, the pieces' u span and the cell ids), once
+    per level -> (S+D, len(STATIC_COLS)) f32, column k the table's column
+    STATIC_COLS[k]. The per-tick table build computes the same values
+    (`walk_table_ref`); kernel W0 copies them from here."""
+    f = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    cols = {
+        C_HB: out["has_back"], C_FCS: out["f_ceil_sky"], C_FFS: out["f_floor_sky"],
+        C_BCS: out["b_ceil_sky"], C_BFS: out["b_floor_sky"],
+        C_CA + 2: out["ceil_atlas"][:, 2], C_CA + 3: out["ceil_atlas"][:, 3],
+        C_FA + 2: out["floor_atlas"][:, 2], C_FA + 3: out["floor_atlas"][:, 3],
+        C_SOLID: out["is_solid"], C_SPRITE: out["is_sprite"],
+        C_CCID: out["ceil_cid"], C_FCID: out["floor_cid"],
+    }
+    for pi in range(3):
+        c0 = PIECE0 + pi * PIECE_C
+        exists, masked = out["piece_exists"][:, pi], out["piece_masked"][:, pi]
+        cols.update({
+            c0 + P_EXISTS: exists, c0 + P_MASKED: masked,
+            c0 + P_B: f(out["piece_s2"][:, pi]) - f(out["piece_s1"][:, pi]),
+            c0 + P_T1: out["piece_t1"][:, pi], c0 + P_T2: out["piece_t2"][:, pi],
+            c0 + P_AB + 2: out["piece_atlas"][:, pi, 2],
+            c0 + P_AB + 3: out["piece_atlas"][:, pi, 3],
+            c0 + P_EXMASK: exists & masked, c0 + P_CID: out["piece_cid"][:, pi],
+        })
+    return np.stack([f(cols[c]) for c in STATIC_COLS], axis=1)
+
+
 def portal_scene_from_table(table: PortalTable, arrays, device) -> dict:
     """PortalTable + LevelArrays -> dict of tensors on `device`: the
     unified (S+D)-row crossing tables (sprites fill the middle piece
-    slot), the packed alpha words, the compact texel / hole / colormap
-    tables and the colormapped sky texture."""
+    slot), the attribute table's per-level columns (`walk_static`), the
+    packed alpha words, the compact texel / hole / colormap tables and
+    the colormapped sky texture (u8)."""
     t = table
     S = t.p1.shape[0]
     D = t.sprite_center.shape[0]
@@ -351,8 +413,11 @@ def portal_scene_from_table(table: PortalTable, arrays, device) -> dict:
         cell_m[rows[ok], cid[ok].astype(np.int64)] = 1.0
     out["cell_m"] = cell_m
     out["tex_full"] = tex_full
+    # The colormapped sky texture: palette indices, so u8 (B2 reads it at
+    # sky pixels).
     sky = np.asarray(arrays.sky_index).astype(np.int32)
-    out["sky_tex"] = np.asarray(arrays.colormaps)[0].astype(np.int32)[sky]
+    out["sky_tex"] = np.asarray(arrays.colormaps)[0].astype(np.uint8)[sky]
+    out["walk_static"] = _walk_static(out)
     pscene = {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
               for k, v in out.items()}
     pscene["hc"] = hc
@@ -386,7 +451,7 @@ def _anim_frame(num_frames, time):
     return torch.floor(torch.remainder(div(time, ANIM_FPS), torch.clamp_min(nf, 1.0)))
 
 
-def _visible_rows(p1, p2, o, fwd, right, p00, pcfg):
+def _visible_rows(p1, p2, o, fwd, right, p00, near: float, far: float):
     """Conservative per-row visibility (portal.py:743-777) -> (B, SD)
     bool: the camera strictly on the row's front side, the row not
     wholly before near or beyond far in forward depth, and not wholly
@@ -407,8 +472,8 @@ def _visible_rows(p1, p2, o, fwd, right, p00, pcfg):
 
     cl1, cl2 = side(dl, p1), side(dl, p2)
     cr1, cr2 = side(dr, p1), side(dr, p2)
-    return (front & (torch.maximum(q1, q2) > pcfg.near)
-            & (torch.minimum(q1, q2) < pcfg.far)
+    return (front & (torch.maximum(q1, q2) > near)
+            & (torch.minimum(q1, q2) < far)
             & ~((cl1 < 0.0) & (cl2 < 0.0)) & ~((cr1 > 0.0) & (cr2 > 0.0)))
 
 
@@ -443,38 +508,26 @@ def _active_set(pt, seg_live_f, act: int):
     return meta, slot_start, overflow
 
 
-def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
-    """Crossings + column walk for every env -> (records (B, R, 16, W),
-    alpha words (B, K, n_words, W) i32, aux dict). active_segs > 0 runs
-    the active-set allocation: aux["gather_meta"] then drives kernel B5,
-    and every record's texel base points into the env's active table."""
-    pcfg = cfg.player
-    H, W = height, width
-    p00, p11 = _projection(cfg, W, H)
-    pos, yaw, pitch = state.pos, state.yaw, state.pitch
-    objoff, time = state.object_offset, state.time
-    B = pos.shape[0]
-    dev = pos.device
+def walk_table_ref(pt, lights_f, objoff, time, right, fwd, o, p00: float,
+                   near: float, far: float, sv: int, flats_w: float, walls_w: float,
+                   aligned: bool):
+    """Plain version of kernel W0 (`ops.walk.walk_table`): the walk's
+    per-(env, row) attribute table (portal.py:652-720) and, where sv > 0,
+    the visible-seg cull (portal.py:730-790).
+
+    pt the portal scene; lights_f (B, L) the light levels; objoff (B, O)
+    the movable objects' offsets; time (B,); right, fwd (B, 2) the
+    camera's xz axes and o (B, 2) its xz position; p00 the projection's
+    x scale; `aligned` takes the texel bases of the active set's aligned
+    layout. Returns the table (B, SD', 74) f32, the rows' endpoints p1,
+    p2 (B, SD', 2) (sprites as billboards facing the camera), `ordv` (B,
+    sv) int64, the level rows the cull kept in order (visible rows first
+    in row order, then the invisible ones: a stable sort), or None, and
+    the overflow (B,) bool (more than sv rows visible). SD' is sv where
+    sv > 0, else the level's S+D rows."""
+    B = time.shape[0]
     SD = pt["has_back"].shape[0]
-
-    cy_, sy_ = cos_sin(yaw)
-    sp_, cp_, shear_ndc = _shear_terms(pitch, p11)
-    cam = pos + pcfg.camera_height * torch.stack([sy_ * sp_, cp_, cy_ * sp_], dim=1)
-    row_shear = 0.5 * H * shear_ndc
-    cx, cyw, cz = cam[:, 0], cam[:, 1], cam[:, 2]
-    fwd = torch.stack([-sy_, -cy_], dim=1)  # (B, 2)
-    right = torch.stack([cy_, -sy_], dim=1)
-
-    i = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
-    # Compiled JAX divides by a constant as a multiply by its f32
-    # reciprocal; the rays and light levels follow it (ROADMAP C).
-    ndc_x = 2.0 * i * f32(1.0 / W) - 1.0
-    xv = ndc_x * f32(1.0 / p00)
-    d = fwd[:, None, :] + right[:, None, :] * xv[None, :, None]  # (B, W, 2)
-
-    lights_f = light_table_u8(scene, time).to(torch.float32) * f32(1.0 / 255.0)  # (B, L)
     ls = lights_f.shape[1]
-
     tcol = time[:, None]  # (B, 1)
 
     def anim_base(a6, atlas_w):
@@ -483,8 +536,6 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
                              tcol.reshape((B,) + (1,) * (a6.dim() - 1)))
         return base, a6[..., 2:4]
 
-    flats_w = float(scene.flats_atlas.shape[1])
-    walls_w = float(scene.walls_atlas_index.shape[1])
     hmin, hmax = pt["hmin"], pt["hmax"]
 
     def off(obj):
@@ -514,7 +565,7 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
 
     # The active set samples the aligned tex_full layout, the global path
     # the dense tex_i8 one.
-    sfx = "_al" if active_segs else ""
+    sfx = "_al" if aligned else ""
     ceil_cb_t = cbase_t(pt["ceil_cbase" + sfx], pt["ceil_atlas"], tcol)
     floor_cb_t = cbase_t(pt["floor_cbase" + sfx], pt["floor_atlas"], tcol)
     piece_cb_t = cbase_t(pt["piece_cbase" + sfx], pt["piece_atlas"], tcol[:, :, None])
@@ -552,21 +603,60 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
     sp_off = right[:, None, :] * sph[None, :, None]
     p1 = torch.cat([pt["p1"].expand(B, -1, -1), spc - sp_off], dim=1)  # (B, SD, 2)
     p2 = torch.cat([pt["p2"].expand(B, -1, -1), spc + sp_off], dim=1)
-    o = torch.stack([cx, cz], dim=1)
 
-    # --- visible-seg cull: at most SV rows per env, visible ones first in
-    # row order (a stable sort); envs with more visible rows overflow.
-    SD_full = SD
-    SV = visible_segs(cfg, SD_full)
-    overflow = torch.zeros((B,), dtype=torch.bool, device=dev)
+    overflow = torch.zeros((B,), dtype=torch.bool, device=time.device)
     ordv = None
-    if 0 < SV < SD_full:
-        vis = _visible_rows(p1, p2, o, fwd, right, p00, pcfg)
-        overflow = vis.sum(dim=1) > SV
-        ordv = torch.sort((~vis).to(torch.int32), dim=1, stable=True).indices[:, :SV]
+    if sv:
+        vis = _visible_rows(p1, p2, o, fwd, right, p00, near, far)
+        overflow = vis.sum(dim=1) > sv
+        ordv = torch.sort((~vis).to(torch.int32), dim=1, stable=True).indices[:, :sv]
         p1, p2 = _gather_rows(p1, ordv), _gather_rows(p2, ordv)
         table = _gather_rows(table, ordv)
-        SD = SV
+    return table, p1, p2, ordv, overflow
+
+
+def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
+    """Crossings + column walk for every env -> (records (B, R, 16, W),
+    alpha words (B, K, n_words, W) i32, aux dict). active_segs > 0 runs
+    the active-set allocation: aux["gather_meta"] then drives kernel B5,
+    and every record's texel base points into the env's active table."""
+    pcfg = cfg.player
+    H, W = height, width
+    p00, p11 = _projection(cfg, W, H)
+    pos, yaw, pitch = state.pos, state.yaw, state.pitch
+    objoff, time = state.object_offset, state.time
+    B = pos.shape[0]
+    dev = pos.device
+    SD = pt["has_back"].shape[0]
+
+    cy_, sy_ = cos_sin(yaw)
+    sp_, cp_, shear_ndc = _shear_terms(pitch, p11)
+    cam = pos + pcfg.camera_height * torch.stack([sy_ * sp_, cp_, cy_ * sp_], dim=1)
+    row_shear = 0.5 * H * shear_ndc
+    cx, cyw, cz = cam[:, 0], cam[:, 1], cam[:, 2]
+    fwd = torch.stack([-sy_, -cy_], dim=1)  # (B, 2)
+    right = torch.stack([cy_, -sy_], dim=1)
+
+    i = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
+    # Compiled JAX divides by a constant as a multiply by its f32
+    # reciprocal; the rays and light levels follow it (ROADMAP C).
+    ndc_x = 2.0 * i * f32(1.0 / W) - 1.0
+    xv = ndc_x * f32(1.0 / p00)
+    d = fwd[:, None, :] + right[:, None, :] * xv[None, :, None]  # (B, W, 2)
+
+    lights_f = light_table_u8(scene, time).to(torch.float32) * f32(1.0 / 255.0)  # (B, L)
+    o = torch.stack([cx, cz], dim=1)
+
+    # --- the attribute table, and on big levels the visible-seg cull: at
+    # most SV rows per env, visible ones first in row order; envs with
+    # more visible rows overflow (W0).
+    SD_full = SD
+    SV = visible_segs(cfg, SD_full)
+    table, p1, p2, ordv, overflow = walk_table(
+        pt, lights_f, objoff, time, right, fwd, o, p00, pcfg.near, pcfg.far,
+        SV if 0 < SV < SD_full else 0, float(scene.flats_atlas.shape[1]),
+        float(scene.walls_atlas_index.shape[1]), bool(active_segs))
+    SD = table.shape[1]
 
     # --- crossings, the K nearest per column and the clip window (W1).
     K = min(n_cross, SD)
@@ -619,10 +709,12 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
     return records, words, aux
 
 
-def sky_image(pt, scene, cfg, width, height, sy_, cy_, sp_, cp_,
-              window_rows: bool = False):
-    """Per-env colormapped sky image (B, H, W) f32: the sky's texel
-    coordinates are row/column separable, so two row gathers.
+def sky_coords(scene, cfg, width, height, sy_, cy_, sp_, cp_,
+               window_rows: bool = False):
+    """The sky's texel coordinates, which are row/column separable: the
+    column of each image column, sky_x (B, W) i32, and the row of each
+    image row, sky_y (B, H) i32; pixel (j, i) of env b shows
+    sky_tex[sky_y[b, j], sky_x[b, i]].
 
     Image row j takes its ndc from y = j + 0.5, as the JAX package's
     `_sky_image` (B2's input) does, or with `window_rows` from the window
@@ -649,11 +741,18 @@ def sky_image(pt, scene, cfg, width, height, sy_, cy_, sp_, cp_,
     ndc_yf = div(ys, 0.5 * H) - 1.0
     sky_u = ndc_x - div(4.0 * v_r0, f32(math.pi))  # (B, W)
     sky_v = -ndc_yf + 1.0 + v_r1  # (B, H)
-    sky_x = sky_x_texel(scene, sky_u)
-    sky_y = sky_y_texel(scene, sky_v)
-    tex = pt["sky_tex"].to(torch.float32)  # (hs, ws)
-    rows = tex[sky_y.long()]  # (B, H, ws)
-    return torch.gather(rows, 2, sky_x.long()[:, None, :].expand(-1, H, -1))
+    return (sky_x_texel(scene, sky_u).to(torch.int32),
+            sky_y_texel(scene, sky_v).to(torch.int32))
+
+
+def sky_image(pt, scene, cfg, width, height, sy_, cy_, sp_, cp_,
+              window_rows: bool = False):
+    """Per-env colormapped sky image (B, H, W) f32: `sky_coords` and two
+    row gathers of the sky texture (`ops.raster.sky_gather`). B8's input
+    (the `portal_jnp` configuration); B2 takes the coordinates."""
+    sky_x, sky_y = sky_coords(scene, cfg, width, height, sy_, cy_, sp_, cp_,
+                              window_rows)
+    return sky_gather(sky_x, sky_y, pt["sky_tex"])
 
 
 def fused_inputs(pscene, scene, cfg, width, height, state):
@@ -664,16 +763,17 @@ def fused_inputs(pscene, scene, cfg, width, height, state):
     records, words, aux = walk(pscene, scene, cfg, width, height,
                                int(cfg.portal_crossings), state, active_segs=act)
     dxz = aux["d"].transpose(1, 2).contiguous()  # (B, 2, W)
-    sky = sky_image(pscene, scene, cfg, width, height, aux["sy"], aux["cy"],
-                    aux["sp"], aux["cp"])
+    sky_x, sky_y = sky_coords(scene, cfg, width, height, aux["sy"], aux["cy"],
+                              aux["sp"], aux["cp"])
     if act:
         tex = gather_cells(aux["gather_meta"], pscene["tex_full"], act)  # (B, act, 128)
         hole = None
     else:
         tex, hole = pscene["tex_i8"], pscene.get("hole_bytes")
     p11 = 1.0 / math.tan(math.radians(cfg.fov) / 2.0)
-    args = (records, words, aux["cam"], pscene["hc"], dxz, sky, tex, hole,
-            pscene["cmap_i8"], height, p11, scene.palette_lut.shape[0])
+    args = (records, words, aux["cam"], pscene["hc"], dxz, sky_x, sky_y,
+            pscene["sky_tex"], tex, hole, pscene["cmap_i8"], height, p11,
+            scene.palette_lut.shape[0])
     return args, dict(shear=aux["shear"]), aux["overflow"]
 
 
@@ -720,10 +820,9 @@ def render_portal_zero_pitch(pscene, scene, cfg, state, width, height):
         idx_f, cov_f = shade_portal(ch.reshape(B, 11, -1), *sargs, shear=shear)
         idx_f = idx_f.reshape(B, height, width)
         cov_f = cov_f.reshape(B, height, width)
-    else:
-        args, kw, overflow = fused_inputs(pscene, scene, cfg, width, height, state)
-        idx_f, cov_f = render_portal_fused(*args, **kw)
-    return idx_f.to(torch.uint8), cov_f > 0.5, overflow
+        return idx_f.to(torch.uint8), cov_f > 0.5, overflow
+    args, kw, overflow = fused_inputs(pscene, scene, cfg, width, height, state)
+    return (*render_portal_fused(*args, **kw), overflow)
 
 
 # Envs one run of a captured tick's fallback renders through the

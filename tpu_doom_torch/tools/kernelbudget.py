@@ -57,6 +57,8 @@ from ..ops.raster import (
     _ndc_rows,
     _shade_address,
     _shade_out,
+    check_sky,
+    sky_gather,
 )
 from . import device_label
 
@@ -87,14 +89,14 @@ def _stages(ablate) -> frozenset:
     return stages
 
 
-def render_portal_ablated_ref(records, words, cam, hc: int, dxz, sky_img, tex,
-                              hole_bytes, cmap_i8, height: int, p11: float,
-                              n_rows: int, shear=None, ablate=()):
+def render_portal_ablated_ref(records, words, cam, hc: int, dxz, sky_x, sky_y,
+                              sky_tex, tex, hole_bytes, cmap_i8, height: int,
+                              p11: float, n_rows: int, shear=None, ablate=()):
     """Plain version of B2 with the stages of `ablate` switched off, in
     the global-table mode (tex (S1, 128) s8, hole_bytes (Sh, 128) s8 or
     None; other arguments as `ops.raster.render_portal_fused_ref`, which
-    this equals with `ablate=()`). Returns (palette index, covered), each
-    (B, H, W) f32."""
+    this equals with `ablate=()`). Returns (palette index (B, H, W) u8,
+    covered (B, H, W) bool)."""
     stages = _stages(ablate)
     if tex.dim() != 2:
         raise ValueError("render_portal_ablated: the global-table mode only")
@@ -124,20 +126,22 @@ def render_portal_ablated_ref(records, words, cam, hc: int, dxz, sky_img, tex,
     v1, hole = _global_texel(tex, None if "hole" in stages else hole_bytes, lin)
     if "tex" in stages:
         v1 = torch.full_like(v1, 128)
-    return _shade_out(v1, hole, crow, covered0, is_sky, sky_img,
-                      None if "cmap" in stages else cmap_i8)
+    idx, cov = _shade_out(v1, hole, crow, covered0, is_sky,
+                          sky_gather(sky_x, sky_y, sky_tex),
+                          None if "cmap" in stages else cmap_i8)
+    return idx.to(torch.uint8), cov > 0.5
 
 
-def render_portal_ablated(records, words, cam, hc: int, dxz, sky_img, tex,
-                          hole_bytes, cmap_i8, height: int, p11: float,
+def render_portal_ablated(records, words, cam, hc: int, dxz, sky_x, sky_y, sky_tex,
+                          tex, hole_bytes, cmap_i8, height: int, p11: float,
                           n_rows: int, shear=None, ablate=()):
     """B2's ablation instantiations for CUDA tensors, the plain version
     for CPU tensors (arguments as `render_portal_ablated_ref`)."""
     stages = _stages(ablate)
     if records.device.type == "cpu":
         return render_portal_ablated_ref(
-            records, words, cam, hc, dxz, sky_img, tex, hole_bytes, cmap_i8,
-            height, p11, n_rows, shear, stages)
+            records, words, cam, hc, dxz, sky_x, sky_y, sky_tex, tex, hole_bytes,
+            cmap_i8, height, p11, n_rows, shear, stages)
     if records.device.type != "cuda":
         raise ValueError(f"render_portal_ablated: unsupported device {records.device}")
     B, R, nch, W = records.shape
@@ -145,11 +149,12 @@ def render_portal_ablated(records, words, cam, hc: int, dxz, sky_img, tex,
     K, n_words = words.shape[1], words.shape[2]
     if (nch != NCH or R != K * RECORDS_PER_CROSSING or words.shape != (B, K, n_words, W)
             or cam.shape != (B, 3) or dxz.shape != (B, 2, W)
-            or sky_img.shape != (B, H, W) or tex.dim() != 2 or tex.shape[1] != 128
+            or tex.dim() != 2 or tex.shape[1] != 128
             or cmap_i8.shape[1] != 128 or (hole_bytes is not None and (
                 hole_bytes.shape[1] != 128 or hole_bytes.shape[0] * 1024 < tex.shape[0] * 128))):
         raise ValueError("render_portal_ablated: bad shapes (global-table mode only;"
                          " the hole table must cover the texel table)")
+    check_sky(sky_x, sky_y, sky_tex, B, H, W, "render_portal_ablated")
     if (records.dtype, words.dtype, tex.dtype, cmap_i8.dtype) != (
             torch.float32, torch.int32, torch.int8, torch.int8) or (
             hole_bytes is not None and hole_bytes.dtype != torch.int8):
@@ -158,17 +163,18 @@ def render_portal_ablated(records, words, cam, hc: int, dxz, sky_img, tex,
     if shear is None:
         shear = torch.zeros((B,), dtype=torch.float32, device=dev)
     args = [t.contiguous() for t in (records, words, cam.float(), shear.float(),
-                                     dxz.float(), sky_img.float(), tex)]
+                                     dxz.float(), sky_x, sky_y, sky_tex, tex)]
     holeless = hole_bytes is None
     hole = (torch.zeros((1, 128), dtype=torch.int8, device=dev) if holeless
             else hole_bytes.contiguous())
     cmap = cmap_i8.contiguous()
-    idx = torch.empty((B, H, W), dtype=torch.float32, device=dev)
-    cov = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
+    cov = torch.empty((B, H, W), dtype=torch.bool, device=dev)
     check(load().tdt_render_portal_ablated(
         *[t.data_ptr() for t in args], hole.data_ptr(), cmap.data_ptr(),
-        idx.data_ptr(), cov.data_ptr(), B, R, W, H, n_words, int(hc), tex.shape[0],
-        int(holeless), f32(p11), int(n_rows), sum(STAGE_BITS[s] for s in stages),
+        idx.data_ptr(), cov.data_ptr(), B, R, W, H, n_words, int(hc),
+        sky_tex.shape[0], sky_tex.shape[1], tex.shape[0], int(holeless), f32(p11),
+        int(n_rows), sum(STAGE_BITS[s] for s in stages),
         0, torch.cuda.current_stream(dev).cuda_stream,
     ), "render_portal_ablated")
     render_portal_ablated.launches += 1

@@ -6,7 +6,10 @@ twin of tools/measure_all.sh.
 Each row of ROWS runs as `python3 -m <module> [args]` from the checkout's
 root with its variables added to the environment, under a time limit;
 prints `=== <vars> python3 -m <module> [args] ===`, then the last line of
-its standard output (a JSON line), then its exit code and seconds. The
+its standard output (a JSON line), the lines of its standard error that
+carry the frames' checksum (the bench rows': two checkouts that render
+the same frames on the same trajectory print the same), then its exit
+code and seconds. The
 first five rows are the shell script's bench rows, then its fallback rate
 and verify rows, then the three bench points of the benchmark's candidate
 cells that the script lacks. Exits 1, naming them, when any row fails,
@@ -56,7 +59,9 @@ def run_row(env: dict, args: tuple, timeout: float) -> tuple[bool, str]:
     secs = time.perf_counter() - t0
     lines = r.stdout.strip().splitlines()
     ok = r.returncode == 0 and bool(lines)
-    report = [lines[-1] if lines else "(no output)", f"rc {r.returncode} in {secs:.1f} s"]
+    report = ([lines[-1] if lines else "(no output)"]
+              + [x for x in r.stderr.splitlines() if ", checksum " in x]
+              + [f"rc {r.returncode} in {secs:.1f} s"])
     if not ok:
         report += r.stderr.strip().splitlines()[-5:]
     return ok, "\n".join(report)
