@@ -1,0 +1,10 @@
+"""frames_span_ms (layer: frames): the `frames` spans per agent step of
+the span window (`harness/spans.py`): a bank's stack of its levels'
+frames inside the graph, or `DoomSim.rollout`'s copy of the graph's frame
+out."""
+
+from harness.spans import reading
+
+
+def read(ctx):
+    return reading(ctx, "frames_span_ms")

@@ -1,0 +1,9 @@
+"""migrated_envs (layer: bank migration): envs that changed level per tic
+of the span window, counted on the device by the port (`trace.counts()`,
+`harness/spans.py`)."""
+
+from harness.spans import reading
+
+
+def read(ctx):
+    return reading(ctx, "migrated_envs")

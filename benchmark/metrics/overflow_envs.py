@@ -1,0 +1,9 @@
+"""overflow_envs (layer: triangle fallback): envs sent to the triangle
+fallback per agent step (per rendered frame) of the span window, counted
+on the device by the port (`trace.counts()`, `harness/spans.py`)."""
+
+from harness.spans import reading
+
+
+def read(ctx):
+    return reading(ctx, "overflow_envs")

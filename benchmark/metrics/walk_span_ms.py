@@ -1,0 +1,9 @@
+"""walk_span_ms (layer: walk): the `walk` spans (W0-W2 and their PyTorch
+glue) summed over levels, per agent step of the span window
+(`harness/spans.py`)."""
+
+from harness.spans import reading
+
+
+def read(ctx):
+    return reading(ctx, "walk_span_ms")

@@ -217,6 +217,7 @@ import time
 import numpy as np
 import torch
 
+from tpu_doom_torch import trace
 from tpu_doom_torch.bench import bank_actions, bank_tick, bench_actions
 from tpu_doom_torch.tools.banks import BANK5, BANK8, BANK_H, BANK_W, make_bank
 from tpu_doom_torch.tools.fixtures import (B_MAIN, H_MAIN, W_MAIN, action_seq,
@@ -1752,11 +1753,9 @@ def run_ticks(sim, state, acts, ticks):
 
 
 def fallback_share(ticks):
-    """Envs on the triangle fallback per env and tick since the tally was
+    """Envs on the triangle fallback per env and tick since the counter was
     zeroed (read from the device: synchronises)."""
-    from tpu_doom_torch.render import portal as P
-
-    return int(P.fallback_tally("cuda")) / (ticks * B_MAIN)
+    return int(trace.counter("overflow_envs", "cuda")) / (ticks * B_MAIN)
 
 
 def timed_segment(tag, label, sim, state, acts, windows, ticks, needed):
@@ -1766,10 +1765,8 @@ def timed_segment(tag, label, sim, state, acts, windows, ticks, needed):
     coverage and the share of envs on the triangle fallback per tick;
     requires each `needed` kernel to have run every tick. Returns the
     launch counts."""
-    from tpu_doom_torch.render import portal as P
-
     reset_counts()
-    P.fallback_tally("cuda").zero_()
+    trace.counter("overflow_envs", "cuda").zero_()
     check = torch.zeros((), dtype=torch.int64, device=sim.device)
     cov_sum = torch.zeros((), dtype=torch.float64, device=sim.device)
     rates = []
@@ -1846,11 +1843,9 @@ def rollout_segment(tag, label, sim, state, acts, windows, ticks, needed, eager)
     require(same_frames and same_state, f"{tag}: the replayed ticks differ from eager ones")
     del got, want, got_state, s
 
-    from tpu_doom_torch.render import portal as P
-
     seq = action_seq(acts, ticks)
     reset_counts()
-    P.fallback_tally("cuda").zero_()
+    trace.counter("overflow_envs", "cuda").zero_()
     check = torch.zeros((), dtype=torch.int64, device=sim.device)
     rates = []
     for w in range(windows):
@@ -1965,7 +1960,6 @@ def bank_segment(tag, label, specs, E, width, height, windows, ticks, needed, **
     the envs on the triangle fallback per tick, the peak device memory
     before and after the capture. Returns (launch counts, replayed
     env*frames/s)."""
-    from tpu_doom_torch.render import portal as P
     from tpu_doom_torch.sim.state import SimState
 
     bank = make_bank(specs, **kw)
@@ -1981,7 +1975,7 @@ def bank_segment(tag, label, specs, E, width, height, windows, ticks, needed, **
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    P.fallback_tally("cuda").zero_()
+    trace.counter("overflow_envs", "cuda").zero_()
     with torch.no_grad():
         (state, active), _ = tick((state, active), acts)
     torch.cuda.synchronize()
@@ -2007,7 +2001,7 @@ def bank_segment(tag, label, specs, E, width, height, windows, ticks, needed, **
                 (s_e, a_e), _ = tick((s_e, a_e), acts)
         torch.cuda.synchronize()
         eager_rates.append(L * E * ticks / (time.perf_counter() - t0))
-        before = int(P.fallback_tally("cuda"))
+        before = int(trace.counter("overflow_envs", "cuda"))
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")
@@ -2023,7 +2017,7 @@ def bank_segment(tag, label, specs, E, width, height, windows, ticks, needed, **
         dt = time.perf_counter() - t0
         rates.append(L * E * ticks / dt)
         dev_ms.append(start.elapsed_time(end) / ticks)
-        fallen = (int(P.fallback_tally("cuda")) - before) / ticks
+        fallen = (int(trace.counter("overflow_envs", "cuda")) - before) / ticks
         same = torch.equal(a_e, abuf) and all(torch.equal(a, b) for a, b in zip(s_e, sbuf))
         print(f"[{tag}] window {w}: {ticks} ticks from the same state, eager"
               f" {eager_rates[-1]:.1f} env*frames/s; replayed {dt * 1e3 / ticks:.4f} ms/tick"
@@ -2037,6 +2031,7 @@ def bank_segment(tag, label, specs, E, width, height, windows, ticks, needed, **
     peak = torch.cuda.max_memory_allocated()
     moved = int((~abuf).sum())
     n_ticks = 2 + EQUAL_TICKS * 2 + windows * ticks * 2
+    fallen_all = int(trace.counter("overflow_envs", "cuda"))
     print(f"[{tag}] {label}, {L} x {E} envs at {width}x{height}, {windows} windows of"
           f" {ticks} ticks: eager median {eager_rate:.1f} env*frames/s (min"
           f" {min(eager_rates):.1f}, max {max(eager_rates):.1f}); replayed median"
@@ -2047,7 +2042,7 @@ def bank_segment(tag, label, specs, E, width, height, windows, ticks, needed, **
           f" kernel launches per replayed tick {graph.launches}, the {len(graph.bodies)}"
           f" fallback bodies' per run; inactive slots after the run {moved}; share of envs"
           f" on the triangle fallback per env and tick"
-          f" {int(P.fallback_tally('cuda')) / (n_ticks * L * E):.4f}; checksum {int(check)};"
+          f" {fallen_all / (n_ticks * L * E):.4f}; checksum {int(check)};"
           f" launches {counts}")
     for name in needed:
         require(counts[name] >= windows * ticks * L, f"{tag}: {name} did not run every tick")
@@ -2214,9 +2209,7 @@ def phase_bank():
 
 
 def phase_main(results):
-    from tpu_doom_torch.render import portal as P
-
-    P.fallback_tally("cuda")  # before any capture, so that the graphs count too
+    trace.counter("overflow_envs", "cuda")  # before any capture, so that the graphs count too
     sim = make_sim()
     state = sim.reset()
     acts = bench_actions(sim, B_MAIN)

@@ -1128,3 +1128,129 @@ def test_sharded_tick_replays_equal_eager_ticks_at_dp1(cuda_device):
 
     (out,) = launch(1, _sharded_dp1_ticks)
     assert out == {"main": True, "main_moved": False, "bank": True, "bank_moved": True}
+
+
+def _fallback_sim(device):
+    """:test: at 64x40, 4 envs, two pitched under portal_pitch="triangle":
+    the fallback's WHILE node runs every rendered tick."""
+    sim = TorchSim(GameConfig(wad_file=":test:", width=64, height=40, batch_size=4,
+                              raster_backend="portal", portal_pitch="triangle"), device)
+    s0 = sim.reset()
+    return sim, s0._replace(pitch=torch.tensor([0.3, 1e-8, -0.2, 1e-8], device=device))
+
+
+@pytest.mark.cuda
+def test_untraced_capture_has_the_nodes_of_one_without_trace(cuda_device, monkeypatch):
+    """On the card: a tick captured with tracing off, before any counter
+    of `trace` is made, has the top-level node count of one captured with
+    every span and count of `trace` replaced by nothing, as before tracing
+    existed; the untraced graph of a tick captured while tracing is on has
+    that of one with the spans alone replaced (made counters count in
+    every graph), so no stamp leaks into it; tracing on replays a traced
+    twin whose frames and state equal the untraced graph's bitwise, and
+    which stamps."""
+    import contextlib
+    import ctypes
+    import functools
+
+    from tpu_doom_torch import trace
+    from tpu_doom_torch.graphs import CapturedTick
+
+    monkeypatch.setattr(trace, "_counters", {})  # none made yet
+    # Keep each capture's cudaGraph_t (`raw_cuda_graph`) to count its nodes.
+    monkeypatch.setattr(torch.cuda, "CUDAGraph",
+                        functools.partial(torch.cuda.CUDAGraph, keep_graph=True))
+    sim, s0 = _fallback_sim(cuda_device)
+    graphs = sim.tick_graphs()
+
+    def tick(s, a):
+        s = graphs.step(s, a)
+        return s, graphs.render(s, 64, 40)
+
+    def capture():
+        return CapturedTick(tick, type(s0)(*(x.clone() for x in s0)), sim.null_actions())
+
+    def nodes(t):
+        n = ctypes.c_size_t()
+        rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+            ctypes.c_void_p(t.graph.raw_cuda_graph()), None, ctypes.byref(n))
+        assert rc == 0, f"cuGraphGetNodes: CUresult {rc}"
+        return n.value
+
+    def spanless(m):
+        for name in ("span", "host_span", "tick_span"):
+            m.setattr(trace, name, lambda *a, **k: contextlib.nullcontext())
+
+    with monkeypatch.context() as m:
+        spanless(m)
+        m.setattr(trace, "count", lambda *a, **k: None)
+        before = nodes(capture())
+    off = capture()
+    assert nodes(off) == before, (before, nodes(off))
+    trace.enable(cuda_device)
+    try:
+        with monkeypatch.context() as m:
+            spanless(m)
+            counted = nodes(capture())
+        on = capture()
+        assert nodes(on) == counted > before, (before, counted, nodes(on))
+        trace.disable()
+        off.replay()
+        want = [x.clone() for x in (*off.state_buf, off.outs[0])]
+        trace.enable(cuda_device)
+        on.replay()
+        got = [*on.state_buf, on.outs[0]]
+        assert on.outs is not on._plain.outs  # the twin's
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        rec = trace.spans()
+        names = [s.name for s in rec.spans]
+        for name in ("tick", "step", "player", "render", "walk", "raster", "fallback",
+                     "host.replay"):
+            assert names.count(name) == 1, (name, names)
+        assert trace.counts()["overflow_envs"] == 2
+    finally:
+        trace.disable()
+
+
+@pytest.mark.cuda
+def test_stamps_lie_inside_their_kernels_in_a_profiler_trace(cuda_device):
+    """On the card: every device stamp of a traced rollout, mapped onto the
+    host clock by the calibrated offset, lies inside its own stamp
+    kernel's interval in a torch.profiler trace of the same ticks, mapped
+    onto the host clock by the trace's own start time, each widened by
+    the calibration's error bound (and the trace's microsecond ticks)."""
+    from tpu_doom_torch import trace
+
+    sim, s0 = _fallback_sim(cuda_device)
+    trace.enable(cuda_device)
+    try:
+        sim.rollout(s0, None, 2)  # captures the twins
+        torch.cuda.synchronize()
+        trace.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            sim.rollout(s0, None, 4, render_every=2)
+            torch.cuda.synchronize()
+        rec = trace.spans()
+    finally:
+        trace.disable()
+    stamps = sorted(t for s in rec.spans if not s.name.startswith(trace.HOST)
+                    for t in (s.start_ns, s.end_ns))
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "trace_stamp_kernel" in e.name)
+    assert len(stamps) == len(kernels) > 0, (len(stamps), len(kernels))
+    base = trace_start_monotonic_ns(prof)
+    slack = rec.error_ns + 1000  # the trace's times are whole microseconds
+    outside = [(t, a, b) for t, (a, b) in zip(stamps, kernels)
+               if not base + a * 1000 - slack <= t <= base + b * 1000 + slack]
+    assert not outside, (rec.error_ns, outside[:5])
+
+
+def trace_start_monotonic_ns(prof) -> int:
+    """The profiler trace's time zero on the host's CLOCK_MONOTONIC: its
+    start (wall-clock ns) less the wall clock's lead over the monotonic
+    one."""
+    import time
+
+    lead = min((time.time_ns() - time.monotonic_ns()) for _ in range(16))
+    return prof.profiler.kineto_results.trace_start_ns() - lead

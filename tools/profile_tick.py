@@ -19,25 +19,29 @@ prints:
     the walk alone (`render.portal.walk`), each the mean of --ticks calls
     that end in a synchronize;
   * a `torch.profiler` pass over --ticks ticks of step + render: device
-    kernels launched and device-busy ms per tick, the idle share against
-    the unprofiled step + render time, the device ms per tick of each
-    hand-written kernel, of the walk's sort and of the captured tick's
-    fallback flag (`set_condition_kernel`), then the launches and device
-    ms per tick of all other kernels (PyTorch's own) and of the 15 of them
-    with the most device ms, and the host ms per tick spent blocked in
-    the per-frame fallback flag read (`aten::item`);
+    kernels launched and device-busy ms per tick, the device ms per tick
+    of each hand-written kernel, of the walk's sort and of the captured
+    tick's fallback flag (`set_condition_kernel`), then the launches and
+    device ms per tick of all other kernels (PyTorch's own) and of the 15
+    of them with the most device ms, and the host ms per tick spent
+    blocked in the per-frame fallback flag read (`aten::item`);
   * the profiler's table of the ops with the most device time;
+  * the port's spans (`tpu_doom_torch.trace`, no profiler attached) over
+    --ticks more ticks: the device idle share of that one run, each
+    layer's ms per tick (step, walk, raster, fallback, ...), the idle
+    gaps by the host span open at their start and the counters
+    (`overflow_envs`, `migrated_envs`) per tick;
   * with --rollout, the same over --ticks ticks of `DoomSim.rollout` (the
     tick captured as CUDA graphs and replayed; the capture made first):
-    kernels and device-busy ms per tick and the idle share, beside the
-    eager tick's, from this one process.
+    kernels and device-busy ms per tick, and its spans.
 With --bank 5 (BASELINE config 5: E1M1, E1M2, MAP01, MAP02) or --bank 8
 (bench.py's L=8 bank), --batch envs per level: the bank tick of
 `tpu_doom_torch.tools.banks` (`LevelBank.step_with_exits`, then every level's render;
 bank_main's actions), eager and captured as one CUDA graph, both over
 the same ticks from the same state: host-clock
-ms per tick, kernels, device-busy ms and idle share per tick, the
-hand-written kernels' device ms, and the peak device memory
+ms per tick, kernels and device-busy ms per tick, the hand-written
+kernels' device ms, the spans of each (idle share, layers), and the
+peak device memory
 (`torch.cuda.max_memory_allocated`) eager and after the capture; with
 --padding also each level's render in the bank against the same envs
 rendered by a DoomSim of that level alone (device-busy ms). With
@@ -67,6 +71,7 @@ from tpu_doom_torch.tools.fixtures import action_seq, capture_bank_tick, make_si
 from tpu_doom_torch.bench import bank_actions, bank_tick, bench_actions  # noqa: E402
 from tpu_doom_torch.tools.banks import BANK5, BANK8, make_bank  # noqa: E402
 from tpu_doom_torch.render import portal as P  # noqa: E402
+from tpu_doom_torch import trace  # noqa: E402
 
 # Substrings of the profiler's kernel names. "render_portal_kernel" also
 # names B2's stage-budget instantiations (render_portal_kernel<mask>), but
@@ -80,6 +85,9 @@ KERNEL_NAMES = ("player_move_kernel", "render_portal_kernel",
                 "walk_cross_kernel", "walk_records_kernel", "radixSort",
                 "set_condition_kernel")
 TOP_OTHERS = 15  # the other kernels `report` lists, by device ms per tick
+# The spans `span_report` prints, outermost first (tpu_doom_torch/trace.py).
+LAYERS = ("tick", "actions", "step", "effects", "player", "triggers", "migrate", "render",
+          "walk", "raster", "fallback", "frames")
 
 
 def sync(device):
@@ -162,7 +170,7 @@ def main(argv=None):
               f" which walk {t_walk:.4f} (host clock, mean of {n})")
 
         prof = profile(tick, n, dev)
-    busy_ms = report("profile", prof, n, t_tick)
+    busy_ms = report("profile", prof, n)
     avg = {e.key: e for e in prof.key_averages()}
     item = avg.get("aten::item")
     blocked = item.cpu_time_total / 1e3 / n if item else 0.0
@@ -171,6 +179,12 @@ def main(argv=None):
     print(prof.key_averages().table(sort_by="self_device_time_total"
                                     if dev.type == "cuda" else
                                     "self_cpu_time_total", row_limit=20))
+
+    def traced_tick():
+        with trace.span("tick"):
+            tick()
+
+    span_report("profile", traced_tick, n, n, dev)
     if args.rollout:
         with torch.no_grad():
             seq = action_seq(acts, n)
@@ -178,11 +192,11 @@ def main(argv=None):
             sync(dev)
             t_roll = ms_per_call(lambda: sim.rollout(box[0], seq, n), dev, 3) / n
             prof = profile(lambda: sim.rollout(box[0], seq, n), 1, dev)
-        roll_busy = report("rollout", prof, n, t_roll)
+            roll_busy = report("rollout", prof, n)
+            span_report("rollout", lambda: sim.rollout(box[0], seq, n), 1, n, dev)
         print(f"[rollout] graph against eager, {n} ticks each: ms/tick {t_roll:.4f} vs"
               f" {t_tick:.4f} ({t_tick / t_roll:.3f}x); device busy {roll_busy:.4f} vs"
-              f" {busy_ms:.4f} ms/tick; idle share {1.0 - roll_busy / t_roll:.4f} vs"
-              f" {1.0 - busy_ms / t_tick:.4f}")
+              f" {busy_ms:.4f} ms/tick")
     return 0
 
 
@@ -201,7 +215,6 @@ def _gib(n):
 
 def profile_bank(args, dev):
     """Eager and replayed bank ticks: time, kernels, busy ms, memory."""
-    P.fallback_tally(dev)  # before the capture, so that the graph counts too
     bank, state, active, acts = _bank(args, dev)
     L, E, n = bank.num_levels, args.batch, args.ticks
     tick = bank_tick(bank, args.width, args.height)
@@ -226,22 +239,22 @@ def profile_bank(args, dev):
     restart()
     prof = profile(eager, n, dev)
     label = f"bank{args.bank} {L}x{E} {args.width}x{args.height} chunk {args.chunk}"
-    busy = report(f"{label} eager", prof, n, t_eager)
+    busy = report(f"{label} eager", prof, n)
+    restart()
+    span_report(f"{label} eager", eager, n, n, dev)
     graph = capture_bank_tick(bank, *start, acts, args.width, args.height)
     leaves = [*graph.state_buf[0], graph.state_buf[1]]
     t_graph = ms_per_call(graph.replay, dev, n)
     torch._foreach_copy_(leaves, [*start[0], start[1]])
     prof = profile(graph.replay, n, dev)
-    gbusy = report(f"{label} graph", prof, n, t_graph)
-    fallen = int(P.fallback_tally(dev))
+    gbusy = report(f"{label} graph", prof, n)
+    torch._foreach_copy_(leaves, [*start[0], start[1]])
+    span_report(f"{label} graph", graph.replay, n, n, dev)
     print(f"[bank] {label}: ms/tick eager {t_eager:.4f}, replayed {t_graph:.4f}"
           f" ({t_eager / t_graph:.3f}x); env*frames/s {L * E * 1e3 / t_eager:.1f} eager,"
           f" {L * E * 1e3 / t_graph:.1f} replayed; device busy {busy:.4f} vs {gbusy:.4f}"
-          f" ms/tick; idle share {1.0 - busy / t_eager:.4f} vs {1.0 - gbusy / t_graph:.4f};"
-          f" peak device memory {_gib(eager_peak):.2f} GiB eager,"
-          f" {_gib(torch.cuda.max_memory_allocated()):.2f} GiB with the graph; envs on the"
-          f" triangle fallback {fallen} over the run (eager and replayed over the same"
-          " ticks)")
+          f" ms/tick; peak device memory {_gib(eager_peak):.2f} GiB eager,"
+          f" {_gib(torch.cuda.max_memory_allocated()):.2f} GiB with the graph")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
     del graph
     if args.padding:
@@ -382,14 +395,46 @@ def profile(fn, calls, dev):
     return prof
 
 
-def report(tag, prof, n, t_tick):
-    """Print kernels and device-busy ms per tick over n ticks, and the idle
-    share against the unprofiled t_tick; returns the busy ms per tick."""
+def span_report(tag, fn, calls, ticks, dev):
+    """The port's spans over `calls` calls of fn (`ticks` ticks in all),
+    after one call that captures the traced twins of any graph: the device
+    idle share of that one run, each layer's ms per tick, the idle gaps
+    by the host span open at their start and the counters per tick."""
+    trace.enable(dev)
+    try:
+        with torch.no_grad():
+            fn()
+            sync(dev)
+            trace.reset()
+            for _ in range(calls):
+                fn()
+            rec = trace.spans()
+            counts = trace.counts()
+    finally:
+        trace.disable()
+    idle = rec.idle_share()
+    print(f"[{tag}] spans: {rec.last_tick - rec.first_tick + 1} ticks, device idle share"
+          f" {'none' if idle is None else f'{idle:.3f} %'} (clock error bound"
+          f" {rec.error_ns} ns)")
+    for name in LAYERS:
+        ms = rec.total_ms(name)
+        if ms:
+            print(f"[{tag}] span {name}: {ms / ticks:.4f} ms per tick")
+    gaps = ", ".join(f"{k} {v / ticks:.4f}" for k, v in sorted(rec.gaps().items(),
+                                                             key=lambda kv: -kv[1]))
+    print(f"[{tag}] idle gaps by the host span open at their start, ms per tick:"
+          f" {gaps or 'none'}")
+    print(f"[{tag}] counts per tick: " + ", ".join(f"{k} {v / ticks:.4f}"
+                                                 for k, v in counts.items()))
+
+
+def report(tag, prof, n):
+    """Print kernels and device-busy ms per tick over n ticks; returns the
+    busy ms per tick."""
     kernels = device_events(prof)
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
     print(f"[{tag}] {len(kernels) / n:.1f} device kernels per tick,"
-          f" device busy {busy_ms:.4f} ms/tick, idle share"
-          f" {1.0 - busy_ms / t_tick:.4f} of the unprofiled {t_tick:.4f} ms")
+          f" device busy {busy_ms:.4f} ms/tick")
     for name in KERNEL_NAMES:
         ev = [e for e in kernels if name in e.name]
         ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n

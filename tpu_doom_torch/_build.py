@@ -94,6 +94,11 @@ SIGNATURES = {
     "tdt_while_begin": [_P, _P, _P, _P],
     # body stream, handle (u64*), pred (bool*, or null): the WHILE node's end
     "tdt_while_end": [_P, _P, _P],
+    # ring, tick counter, slot, n_slots, n_ticks, ahead, opens, stream:
+    # one %globaltimer stamp (trace.py)
+    "tdt_trace_stamp": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # out (i64*), steps, stream: %globaltimer's smallest step
+    "tdt_trace_resolution": [_P, _I, _P],
 }
 
 

@@ -37,6 +37,7 @@ import weakref
 
 import torch
 
+from . import trace
 from .sim.state import Actions, SimState, null_actions
 
 MAX_BODIES = 1024  # conditional bodies one capture may hold (counters made before it)
@@ -121,7 +122,10 @@ def device_while(cond, body, runs: int) -> None:
     # The body's allocations, made on the body stream, come from a pool
     # that lives as long as the captured tick, as the graph's own do.
     try:
-        with torch.cuda.use_mem_pool(cap.body_pool, flag.device), torch.cuda.stream(stream):
+        # Its runs are counted, not stamped: the fallback's span is the
+        # node's on the capturing stream.
+        with torch.cuda.use_mem_pool(cap.body_pool, flag.device), torch.cuda.stream(stream), \
+                trace.paused():
             counter.add_(1)
             body()
             again = cond().to(torch.bool).contiguous()
@@ -155,6 +159,37 @@ def _leaves(tree) -> list:
     return [t for x in tree for t in _leaves(x)]
 
 
+class _TickGraph:
+    """One capture of a CapturedTick's tick: the graph, its other outputs,
+    its conditional bodies (and their memory pool) and its launches per
+    replay outside the bodies."""
+
+    def __init__(self, tick, state_buf, actions_buf, pool):
+        from .ops import add_launches, host_launch_counts
+
+        cap = _Capture(_leaves(state_buf)[0].device)
+        self.graph = torch.cuda.CUDAGraph()
+        before = host_launch_counts()
+        _captures.append(cap)
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+                with trace.span("tick"):
+                    new, *outs = tick(state_buf, actions_buf)
+                    torch._foreach_copy_(_leaves(state_buf), _leaves(new))
+        finally:
+            _captures.pop()
+            captured = _diff(host_launch_counts(), before)
+            add_launches({k: -n for k, n in captured.items()})  # nothing ran
+        self.outs = outs
+        self.bodies, self.body_pool = cap.bodies, cap.body_pool
+        _bodies.update(cap.bodies)
+        launches = dict(captured)
+        for b in cap.bodies:
+            for name, n in b.launches.items():
+                launches[name] -= n
+        self.launches = {k: n for k, n in launches.items() if n}
+
+
 class CapturedTick:
     """`tick(state, actions) -> (state, *outs)` captured as one CUDA graph
     that reads `state_buf` and `actions_buf` and writes the new state back
@@ -171,41 +206,44 @@ class CapturedTick:
     fails raises. The capture is thread-local: another thread of the
     process, such as NCCL's watchdog querying the warm-up's collectives,
     may call the runtime meanwhile, while a host read in the tick itself
-    still fails the capture."""
+    still fails the capture.
+
+    This graph holds no span of `trace`: while tracing is on, `replay`
+    replays a traced twin instead, captured at its first such replay from
+    the same tick and buffers (and again in each tracing session), whose
+    stamps are graph nodes; `outs` are then the twin's."""
 
     def __init__(self, tick, state_buf, actions_buf: Actions, pool=None):
-        from .ops import add_launches, host_launch_counts
-
         self.tick, self.state_buf, self.actions_buf = tick, state_buf, actions_buf
-
-        with device_decisions():
-            tick(state_buf, actions_buf)
-        cap = _Capture(_leaves(state_buf)[0].device)
-        self.graph = torch.cuda.CUDAGraph()
-        before = host_launch_counts()
-        _captures.append(cap)
-        try:
-            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-                new, *outs = tick(state_buf, actions_buf)
-                torch._foreach_copy_(_leaves(state_buf), _leaves(new))
-        finally:
-            _captures.pop()
-            captured = _diff(host_launch_counts(), before)
-            add_launches({k: -n for k, n in captured.items()})  # nothing ran
-        self.outs = outs
-        self.bodies, self._body_pool = cap.bodies, cap.body_pool
-        _bodies.update(cap.bodies)
-        self.launches = dict(captured)  # per replay, outside the bodies
-        for b in cap.bodies:
-            for name, n in b.launches.items():
-                self.launches[name] -= n
-        self.launches = {k: n for k, n in self.launches.items() if n}
+        self.pool = pool
+        with trace.paused():
+            with device_decisions():
+                tick(state_buf, actions_buf)
+            plain = _TickGraph(tick, state_buf, actions_buf, pool)
+        self._plain, self._traced = plain, None
+        self.graph, self.outs, self.bodies = plain.graph, plain.outs, plain.bodies
+        self.launches = plain.launches
 
     def replay(self) -> None:
         from .ops import add_launches
 
-        self.graph.replay()
-        add_launches(self.launches)
+        session = trace.session()
+        g = self._plain
+        if session is not None:
+            if self._traced is None or self._traced[0] is not session:
+                self._traced = None
+                with trace.capturing():
+                    self._traced = (session, _TickGraph(self.tick, self.state_buf,
+                                                       self.actions_buf, self.pool))
+            g = self._traced[1]
+            trace.open_tick()
+            with trace.host_span("replay"):
+                g.graph.replay()
+        else:
+            self._traced = None
+            g.graph.replay()
+        self.outs = g.outs
+        add_launches(g.launches)
 
 
 class TickGraphs:
@@ -256,10 +294,14 @@ class TickGraphs:
         if dev.type != "cuda":
             idle = null_actions(B, dev)
             for t, rendered in enumerate(plan):
-                acts = idle if action_seq is None else Actions(*(x[t] for x in action_seq))
-                state = self.step(state, acts)
+                with trace.span("actions", ahead=1, host=True):
+                    acts = idle if action_seq is None else Actions(*(x[t] for x in action_seq))
+                with trace.span("tick"):
+                    state = self.step(state, acts)
+                    frame = self.render(state, width, height) if rendered else None
                 if rendered:
-                    frames[t // render_every] = self.render(state, width, height)
+                    with trace.span("frames", host=True):
+                        frames[t // render_every] = frame
             return state, frames
 
         if B not in self._buffers:
@@ -274,8 +316,10 @@ class TickGraphs:
                          if True in plan else None)}
         for t, rendered in enumerate(plan):
             if action_seq is not None:
-                torch._foreach_copy_(list(abuf), [x[t] for x in action_seq])
+                with trace.span("actions", ahead=1, host=True):
+                    torch._foreach_copy_(list(abuf), [x[t] for x in action_seq])
             graphs[rendered].replay()
             if rendered:
-                frames[t // render_every].copy_(graphs[True].outs[0])
+                with trace.span("frames", host=True):
+                    frames[t // render_every].copy_(graphs[True].outs[0])
         return SimState(*(x.clone() for x in sbuf)), frames

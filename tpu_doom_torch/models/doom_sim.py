@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..geom.builder import compile_level
 from ..render import frames_to_rgb, render_dispatch
 from ..render.raster import check_raster_backend
@@ -210,9 +211,10 @@ class DoomSim:
         action_seq: (n, B, ...) Actions, or None for idle ticks."""
         if render_every < 1:
             raise ValueError(f"render_every must be at least 1, not {render_every}")
-        return self.tick_graphs().run(
-            state, action_seq, n, render_every, width or self.config.width,
-            height or self.config.height)
+        with trace.host_span("rollout", ahead=1):
+            return self.tick_graphs().run(
+                state, action_seq, n, render_every, width or self.config.width,
+                height or self.config.height)
 
     # -- exits -----------------------------------------------------------
 

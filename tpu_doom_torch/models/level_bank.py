@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..geom.builder import LevelArrays
 from ..render import render_dispatch
 from ..render.raster import check_raster_backend
@@ -271,26 +272,33 @@ class LevelBank:
         cleared. Returns (state, active, moved): moved[l] = envs that left
         level l this tick. Counts and ranks stay tensors: nothing is read
         back. Under a mesh, the (L, E) arguments are this rank's 'dp'
-        block: the masks are gathered, migrated whole and cut back."""
-        state = self.step(state, actions, scenes=scenes)
-        init = self.initial_states(state.pos.shape[1])
-        exited = (state.exit_triggered > 0) & active  # (L, E)
-        if self.mesh is None:
-            act, moved, spawn = migrate_slots(exited, active)
-        else:
-            from ..parallel.mesh import block, gather_envs
+        block: the masks are gathered, migrated whole and cut back.
+        Called outside a tick (eagerly), it opens one for `trace`."""
+        with trace.tick_span():
+            return self._step_with_exits(state, active, actions, scenes)
 
-            masks = gather_envs(torch.stack([exited, active]), self.mesh, axis=2)
-            mine = block(masks.shape[2], self.mesh, "dp")
-            act, moved, spawn = (m[:, mine] for m in migrate_slots(masks[0], masks[1]))
-        # Receiving slots take their level's initial state; every exited
-        # slot resets in place (capacity-blocked envs restart their level,
-        # departed slots, now inactive, are left clean).
-        fresh = spawn | exited
-        state = SimState(*(
-            torch.where(fresh.view(fresh.shape + (1,) * (s.dim() - 2)), i, s)
-            for i, s in zip(init, state)))
-        state = state._replace(exit_triggered=torch.zeros_like(state.exit_triggered))
+    def _step_with_exits(self, state, active, actions, scenes):
+        state = self.step(state, actions, scenes=scenes)
+        with trace.span("migrate"):
+            init = self.initial_states(state.pos.shape[1])
+            exited = (state.exit_triggered > 0) & active  # (L, E)
+            if self.mesh is None:
+                act, moved, spawn = migrate_slots(exited, active)
+            else:
+                from ..parallel.mesh import block, gather_envs
+
+                masks = gather_envs(torch.stack([exited, active]), self.mesh, axis=2)
+                mine = block(masks.shape[2], self.mesh, "dp")
+                act, moved, spawn = (m[:, mine] for m in migrate_slots(masks[0], masks[1]))
+            trace.count("migrated_envs", moved)
+            # Receiving slots take their level's initial state; every exited
+            # slot resets in place (capacity-blocked envs restart their level,
+            # departed slots, now inactive, are left clean).
+            fresh = spawn | exited
+            state = SimState(*(
+                torch.where(fresh.view(fresh.shape + (1,) * (s.dim() - 2)), i, s)
+                for i, s in zip(init, state)))
+            state = state._replace(exit_triggered=torch.zeros_like(state.exit_triggered))
         return state, act, moved
 
     @torch.no_grad()
@@ -301,7 +309,8 @@ class LevelBank:
         bool)."""
         outs = [self.render_level(state, lv, width, height, scenes, pscenes)
                 for lv in range(self.num_levels)]
-        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+        with trace.span("frames"):
+            return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
     @torch.no_grad()
     def render_level(self, state: SimState, lv: int, width=None, height=None,

@@ -3,6 +3,7 @@ triangle-path fallback, and the triangle path alone."""
 
 import torch
 
+from .. import trace
 from .camera import camera_matrices, perspective
 from .raster import check_raster_backend, frames_to_rgb, render_frames
 
@@ -37,14 +38,15 @@ def render_dispatch(scene, pscene, cfg, state, width, height):
     check_raster_backend(cfg.raster_backend)
     batch = state.pos.shape[0]
     chunk = env_chunk(cfg, batch, width, height)
-    if batch <= chunk:
-        return _render_one(scene, pscene, cfg, state, width, height)
-    parts = [
-        _render_one(scene, pscene, cfg, state._make(x[i:i + chunk] for x in state),
-                    width, height)
-        for i in range(0, batch, chunk)
-    ]
-    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+    with trace.span("render"):
+        if batch <= chunk:
+            return _render_one(scene, pscene, cfg, state, width, height)
+        parts = [
+            _render_one(scene, pscene, cfg, state._make(x[i:i + chunk] for x in state),
+                        width, height)
+            for i in range(0, batch, chunk)
+        ]
+        return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
 
 
 def _render_one(scene, pscene, cfg, state, width, height):

@@ -48,6 +48,7 @@ import math
 import numpy as np
 import torch
 
+from .. import trace
 from .._numerics import cos_sin, div, f32, to_i32
 from ..geom.portal import PortalTable
 from ..ops.raster import (
@@ -755,13 +756,14 @@ def sky_image(pt, scene, cfg, width, height, sy_, cy_, sp_, cp_,
     return sky_gather(sky_x, sky_y, pt["sky_tex"])
 
 
-def fused_inputs(pscene, scene, cfg, width, height, state):
-    """Walk every env and assemble kernel B2's arguments: returns (args,
-    keyword args, overflow (B,) bool) for `render_portal_fused`. On the
-    active-set path kernel B5 builds the per-env texel tables first."""
+def fused_inputs(pscene, scene, cfg, width, height, state, walked=None):
+    """Walk every env (unless `walked` holds `walk`'s result) and assemble
+    kernel B2's arguments: returns (args, keyword args, overflow (B,)
+    bool) for `render_portal_fused`. On the active-set path kernel B5
+    builds the per-env texel tables first."""
     act = active_segs(pscene, cfg)
-    records, words, aux = walk(pscene, scene, cfg, width, height,
-                               int(cfg.portal_crossings), state, active_segs=act)
+    records, words, aux = walked or walk(pscene, scene, cfg, width, height,
+                                         int(cfg.portal_crossings), state, active_segs=act)
     dxz = aux["d"].transpose(1, 2).contiguous()  # (B, 2, W)
     sky_x, sky_y = sky_coords(scene, cfg, width, height, aux["sy"], aux["cy"],
                               aux["sp"], aux["cp"])
@@ -777,8 +779,9 @@ def fused_inputs(pscene, scene, cfg, width, height, state):
     return args, dict(shear=aux["shear"]), aux["overflow"]
 
 
-def oracle_inputs(pscene, scene, cfg, width, height, state):
-    """Walk every env and assemble the `portal_jnp` configuration's kernel
+def oracle_inputs(pscene, scene, cfg, width, height, state, walked=None):
+    """Walk every env (unless `walked` holds `walk`'s result, made with no
+    active set) and assemble the `portal_jnp` configuration's kernel
     arguments: returns (B7's args, B8's args after its channels, shear
     (B,), overflow (B,) bool). B8's sky image is `_shade_portal`'s
     (`sky_image(window_rows=True)`). The JAX package takes no active set
@@ -786,8 +789,8 @@ def oracle_inputs(pscene, scene, cfg, width, height, state):
     level gets a full-size table of empty hole bytes (ceil(S1 / 8) rows
     of -128), never the TPU's (1, 128) stub, which B8 would read past."""
     H, W = height, width
-    records, words, aux = walk(pscene, scene, cfg, W, H,
-                               int(cfg.portal_crossings), state)
+    records, words, aux = walked or walk(pscene, scene, cfg, W, H,
+                                         int(cfg.portal_crossings), state)
     B = records.shape[0]
     P = H * W
     dev = records.device
@@ -811,37 +814,30 @@ def oracle_inputs(pscene, scene, cfg, width, height, state):
 def render_portal_zero_pitch(pscene, scene, cfg, state, width, height):
     """The column-walk path proper (pitch as y-shear) -> (idx u8, covered
     bool, overflow (B,) bool): B2, or B7 then B8 under `portal_jnp`."""
-    if cfg.raster_backend == "portal_jnp":
-        cargs, sargs, shear, overflow = oracle_inputs(
-            pscene, scene, cfg, width, height, state)
-        ch = classify_alpha(*cargs, shear=shear)
-        B = ch.shape[0]
-        del cargs  # the records and words: B8 needs neither
-        idx_f, cov_f = shade_portal(ch.reshape(B, 11, -1), *sargs, shear=shear)
-        idx_f = idx_f.reshape(B, height, width)
-        cov_f = cov_f.reshape(B, height, width)
-        return idx_f.to(torch.uint8), cov_f > 0.5, overflow
-    args, kw, overflow = fused_inputs(pscene, scene, cfg, width, height, state)
-    return (*render_portal_fused(*args, **kw), overflow)
+    oracle = cfg.raster_backend == "portal_jnp"
+    with trace.span("walk"):
+        walked = walk(pscene, scene, cfg, width, height, int(cfg.portal_crossings), state,
+                      active_segs=0 if oracle else active_segs(pscene, cfg))
+    with trace.span("raster"):
+        if oracle:
+            cargs, sargs, shear, overflow = oracle_inputs(
+                pscene, scene, cfg, width, height, state, walked)
+            del walked
+            ch = classify_alpha(*cargs, shear=shear)
+            B = ch.shape[0]
+            del cargs  # the records and words: B8 needs neither
+            idx_f, cov_f = shade_portal(ch.reshape(B, 11, -1), *sargs, shear=shear)
+            idx_f = idx_f.reshape(B, height, width)
+            cov_f = cov_f.reshape(B, height, width)
+            return idx_f.to(torch.uint8), cov_f > 0.5, overflow
+        args, kw, overflow = fused_inputs(pscene, scene, cfg, width, height, state, walked)
+        del walked
+        return (*render_portal_fused(*args, **kw), overflow)
 
 
 # Envs one run of a captured tick's fallback renders through the
 # triangle path (render_frames_portal).
 FALLBACK_ENVS = 32
-_FALLBACK_TALLY: dict = {}  # device -> 0-d int64 count of fallback envs
-
-
-def fallback_tally(device) -> torch.Tensor:
-    """A 0-d int64 tensor on `device` to which every later portal frame
-    adds, on the device, its number of envs on the triangle fallback.
-    Made at the first call, which must come before the captures it is to
-    count; zero it and read it as any tensor."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if dev not in _FALLBACK_TALLY:
-        _FALLBACK_TALLY[dev] = torch.zeros((), dtype=torch.int64, device=dev)
-    return _FALLBACK_TALLY[dev]
 
 
 def render_frames_portal(pscene, scene, cfg, state, width, height):
@@ -861,17 +857,23 @@ def render_frames_portal(pscene, scene, cfg, state, width, height):
     The work follows the number of fallen envs, the graph holds one node
     for it, and the memory it keeps is one block's. Each env renders on
     its own, so all forms give the same frames."""
-    from ..graphs import decides_on_device, device_while
-
     idx, cov, overflow = render_portal_zero_pitch(
         pscene, scene, cfg, state, width, height)
     if cfg.portal_pitch == "triangle":
         fall = (torch.abs(state.pitch) > PITCH_EPS) | overflow
     else:
         fall = overflow
-    tally = _FALLBACK_TALLY.get(fall.device)
-    if tally is not None:
-        tally.add_(fall.sum())
+    trace.count("overflow_envs", fall)
+    with trace.span("fallback"):
+        return _fallback(scene, cfg, state, width, height, fall, idx, cov)
+
+
+def _fallback(scene, cfg, state, width, height, fall, idx, cov):
+    """`idx`, `cov` with the envs `fall` marks rendered through the
+    triangle path: by the WHILE node's blocks on the device, or the fallen
+    envs alone after a host read."""
+    from ..graphs import decides_on_device, device_while
+
     if decides_on_device(fall):
         B = fall.shape[0]
         n = min(FALLBACK_ENVS, B)
