@@ -260,6 +260,17 @@ KERNELS = {
     "render_portal_fused": dict(
         source="tpu_doom_torch/csrc/render_portal.cu",
         replaces="tpu_doom/ops/raster_pallas.py:854"),
+    # The step's kernels around B1, the port's own: counterparts of the
+    # XLA-compiled step (tpu_doom/sim/step.py:step, no pl.pallas_call); S1
+    # replaces its effects, toggles and broad-phase rows, S2 its player
+    # math after the sweeps, triggers and clock. At :test:'s 1,024 envs
+    # (the benchmark's `synth` cells) and config 5's MAP01 (1,024 envs).
+    "effects_rows": dict(
+        source="tpu_doom_torch/csrc/step.cu",
+        replaces="tpu_doom/sim/step.py:26"),
+    "player_triggers": dict(
+        source="tpu_doom_torch/csrc/step.cu",
+        replaces="tpu_doom/sim/step.py:26"),
     "peel_resolve": dict(
         source="tpu_doom_torch/csrc/peel_resolve.cu",
         replaces="tpu_doom/ops/raster_pallas.py:322"),
@@ -307,6 +318,12 @@ KERNELS = {
     "player_move_bank": dict(
         source="tpu_doom_torch/csrc/player_move.cu",
         replaces="tpu_doom/ops/collision_pallas.py:358"),
+    "effects_rows_bank": dict(
+        source="tpu_doom_torch/csrc/step.cu",
+        replaces="tpu_doom/sim/step.py:26"),
+    "player_triggers_bank": dict(
+        source="tpu_doom_torch/csrc/step.cu",
+        replaces="tpu_doom/sim/step.py:26"),
     "classify_alpha_bank": dict(
         source="tpu_doom_torch/csrc/classify_alpha.cu",
         replaces="tpu_doom/ops/raster_pallas.py:479"),
@@ -397,6 +414,8 @@ SHADE_PIXEL_OPS = 60  # one pixel's shade (texel address, light row)
 CROSS_TEST_OPS = 19   # one ray against one walk row: denom, t, u, the validity tests
 RECORD_OPS = 64       # one kept crossing's five records and alpha word in one column
 WALK = ("walk_table", "walk_cross", "walk_records")  # the walk's kernels, all on every level
+STEP = ("effects_rows", "player_move", "player_triggers")  # the step's kernels, every tic
+STEP_ENVS = 1024  # S1's and S2's rows: the benchmark's `synth` cells
 # B4's selected columns W2 reads: all 74 but the two back heights (the
 # clip window's, W1's) and the three pieces' unmasked-texture flags.
 W2_SEL_COLS = 69
@@ -777,6 +796,72 @@ def phase_player_move(results, suffix, label, scene, cfg, state):
            sweeps * rows.shape[2] * SWEEP_TRI_OPS)
 
 
+def phase_step_kernels(results, suffix, label, scene, cfg, state, acts):
+    """S1 and S2 on `state` of `scene` with actions `acts`, each bitwise
+    against its plain version, timed beside its bound: the bytes it reads
+    and writes, each input (the scene's tables whole) read once and each
+    output written once; its operations (a few hundred an env) bound less."""
+    from tpu_doom_torch.ops import (
+        effects_rows,
+        effects_rows_ref,
+        player_move,
+        player_triggers,
+        player_triggers_ref,
+    )
+    from tpu_doom_torch.ops.step import ANIMATED, S2_OUT
+
+    pcfg, dt = cfg.player, cfg.timestep
+    fields = ("object_offset", "eff_active", "eff_first", "eff_second", "eff_has_second",
+              "eff_wait", "eff_speed")
+    tables = [getattr(scene, f) for f in ("bp_origin", "bp_inv_cell", "bp_dims", "bp_cells",
+                                          "coll_v0", "coll_v1", "coll_v2", "coll_normal",
+                                          "coll_object")]
+
+    def s1():
+        return effects_rows(scene, state, acts, dt)
+
+    def flat1(out):
+        eff, *rest = out
+        return [eff[k] for k in fields] + rest
+
+    got1, want1 = s1(), effects_rows_ref(scene, state, acts, dt)
+    mv = player_move(got1[3], got1[4], radius=pcfg.radius, height=pcfg.height, dt=dt,
+                     substeps=pcfg.clip_substeps, enable_noclip=pcfg.enable_noclip)
+
+    def s2():
+        return player_triggers(scene, pcfg, dt, state, acts, *got1[:3], mv)
+
+    got2 = s2()
+    want2 = player_triggers_ref(scene, pcfg, dt, state, acts, *got1[:3], mv)
+    torch.cuda.synchronize()
+    read1 = [state.pos, state.vel] + [getattr(state, f) for f in fields] + [
+        state.fly, state.noclip, acts.fly_toggle, acts.clip_toggle] + tables
+    written1 = [got1[0][f] for f in ANIMATED] + list(got1[1:])
+    read2 = [mv] + [getattr(state, f) for f in (
+        "pos", "vel", "yaw", "pitch", "last_height_diff", "time", "tick", "trig_alive",
+        "exit_triggered", "eff_second", "eff_speed")] + [got1[1], got1[2]] + [
+        got1[0][f] for f in ANIMATED[1:]] + [
+        acts.movement, acts.look, acts.jump, acts.push, acts.shoot] + [
+        getattr(scene, f) for f in scene._fields if f.startswith(("trig_", "eff_"))]
+    written2 = [getattr(got2, f) for f in S2_OUT]
+    for name, got, want, fn, plain, moved in (
+            ("effects_rows", flat1(got1), flat1(want1), s1,
+             lambda: effects_rows_ref(scene, state, acts, dt), read1 + written1),
+            ("player_triggers", list(got2), list(want2), s2,
+             lambda: player_triggers_ref(scene, pcfg, dt, state, acts, *got1[:3], mv),
+             read2 + written2)):
+        same = all(same_bits(a, b) for a, b in zip(got, want)) and len(got) == len(want)
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        ms, b2b = kernel_ms(fn)
+        graph = graph_ms(fn)  # device time: the wrapper's host time is most of b2b
+        plain_ms = time_ms(plain)
+        print(f"[kernel] {name} {label}: bitwise equal {same}, max_abs_err {err}"
+              f" (ceiling 0); {ms:.4f} ms ({b2b:.4f} back to back, {graph:.4f} in a"
+              f" captured graph) vs plain {plain_ms:.4f} ms")
+        require(same, f"{name} disagrees with its plain version on {label}: {err}")
+        record(results, name + suffix, err, ms, b2b, plain_ms, nbytes(*moved))
+
+
 def phase_portal(results, suffix, label, sim, state, width, height):
     """B2 on the port's own walk of `state` of `sim` at width x height, at
     0 px against its plain version, timed beside its bound -> its idx."""
@@ -811,6 +896,15 @@ def phase_kernels(results):
     # B1 at 256 envs, clip_substeps=4.
     phase_player_move(results, "", f"rows of :test:'s {B_MAIN} envs", sim.scene,
                       sim.config, state)
+
+    # S1 and S2 at the benchmark's `synth` shape: 1,024 envs of :test:.
+    big = make_sim(batch_size=STEP_ENVS)
+    big_state, big_acts = big.reset(), bench_actions(big, STEP_ENVS)
+    for _ in range(WARMUP_TICKS):
+        big_state = big.step(big_state, big_acts)
+    phase_step_kernels(results, "", f":test:'s {STEP_ENVS} envs", big.scene, big.config,
+                       big_state, big_acts)
+    del big, big_state
 
     # B2 on the port's own walk output, 256 envs at 320x200.
     gi = phase_portal(results, "", ":test:", sim, state, W_MAIN, H_MAIN)
@@ -1652,6 +1746,9 @@ def phase_kernels_bank(results):
     lv = 2
     phase_player_move(results, "_bank", f"config 5's MAP01 ({E} envs, padded table)",
                       bank._at(bank.scenes, lv), bank.cfg, bank._at(state, lv))
+    phase_step_kernels(results, "_bank", f"config 5's MAP01 ({E} envs, padded table)",
+                       bank._at(bank.scenes, lv), bank.cfg, bank._at(state, lv),
+                       bank._at(acts, lv))
     phase_walk(results, "_bank", f"config 5's MAP01 ({E} envs, padded table) at"
                f" {BANK_W}x{BANK_H}", bank._at(bank.pscenes, lv), bank._at(bank.scenes, lv),
                bank.cfg, BANK_W, BANK_H, bank._at(state, lv))
@@ -2218,7 +2315,7 @@ def phase_main(results):
     load = ", ".join(f"{x:.2f}" for x in os.getloadavg())
     print(f"[host] {os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} usable;"
           f" load average {load}")
-    main_needed = ("player_move", "render_portal_fused") + WALK
+    main_needed = STEP + ("render_portal_fused",) + WALK
     segments, eager = {}, {}
     segments["bench"], eager["bench"] = timed_segment(
         "main", f":test: {W_MAIN}x{H_MAIN} x {B_MAIN} envs", sim, state, acts,
@@ -2303,8 +2400,8 @@ def tally(results, segments):
         config5 = ("bank5", "bank8", "entry_bank", "parallel_bank5_sharded")
         c["render_portal_fused_bank"] = c["render_portal_fused"] if seg in config5 else 0
         at_bank = seg in config5 + ("bank_oracle", "bank_fallback")
-        for name in ("player_move", "classify_alpha", "shade_portal", "peel_resolve",
-                     "depth_peel"):
+        for name in ("player_move", "effects_rows", "player_triggers", "classify_alpha",
+                     "shade_portal", "peel_resolve", "depth_peel"):
             c[name + "_bank"] = c[name] if at_bank else 0
         c["peel_resolve_maze"] = c["peel_resolve"] if maze else 0
         c["depth_peel_maze"] = c["depth_peel"] if maze else 0

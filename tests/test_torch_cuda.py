@@ -16,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from trigger_scenarios import FIRING, SCENARIOS
 
 from tpu_doom_torch.models import DoomSim as TorchSim
 from tpu_doom_torch.utils.config import GameConfig
@@ -1254,3 +1255,282 @@ def trace_start_monotonic_ns(prof) -> int:
 
     lead = min((time.time_ns() - time.monotonic_ns()) for _ in range(16))
     return prof.profiler.kineto_results.trace_start_ns() - lead
+
+
+# ---------------------------------------------------------------------------
+# S1 and S2, the step's kernels around B1: bitwise their plain versions,
+# three kernel nodes a level.
+# ---------------------------------------------------------------------------
+
+# case: (wad, level); "_no_triggers" drops the level's triggers and effect
+# definitions (K = D = 0).
+STEP_LEVELS = {
+    "test0": (":test:", 0),
+    "doom2_0": (":doom2:", 0),
+    "doom2_1": (":doom2:", 1),
+    "test0_no_triggers": (":test:", 0),
+}
+STEP_TICKS = 64
+KERNEL_NODE = 0  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def _step_sim(case, B, device, **player):
+    """(sim, scene, reset state) of a STEP_LEVELS case with B envs."""
+    from tpu_doom_torch.utils.config import PlayerConfig
+
+    wad, level = STEP_LEVELS[case]
+    sim = TorchSim(GameConfig(wad_file=wad, initial_level_index=level, width=64, height=40,
+                              batch_size=B, raster_backend="portal",
+                              player=PlayerConfig(**player)), device)
+    scene, s = sim.scene, sim.reset()
+    if case.endswith("_no_triggers"):
+        scene = scene._replace(**{f: getattr(scene, f)[:0] for f in scene._fields
+                                  if f.startswith(("trig_", "eff_"))})
+        s = s._replace(trig_alive=s.trig_alive[:, :0])
+    return sim, scene, s
+
+
+def _perturbed(s, start, rng):
+    """A state around `start` (B, 3) with every field drawn from `rng`
+    (some movements and looks zero, some envs flying, noclipping,
+    jumping, toggling, pushing, shooting) and its actions."""
+    from tpu_doom_torch.sim.state import Actions
+
+    dev = s.pos.device
+    B, O = s.object_offset.shape
+    K = s.trig_alive.shape[1]
+
+    def u(lo, hi, shape):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32), device=dev)
+
+    def coin(p, shape):
+        return torch.as_tensor(rng.random(shape) < p, device=dev)
+
+    pos = start + u(-2.0, 2.0, (B, 3)) * torch.tensor([1.0, 0.15, 1.0], device=dev)
+    s = s._replace(
+        pos=pos, vel=u(-4.0, 4.0, (B, 3)), yaw=u(-np.pi, np.pi, B), pitch=u(-1.5, 1.5, B),
+        fly=coin(0.25, B), noclip=coin(0.25, B), last_height_diff=u(-0.1, 0.1, B),
+        object_offset=u(-1.0, 1.0, (B, O)), eff_active=coin(0.5, (B, O)),
+        eff_first=u(-1.0, 1.0, (B, O)), eff_second=u(-1.0, 1.0, (B, O)),
+        eff_has_second=coin(0.5, (B, O)), eff_wait=u(0.0, 0.03, (B, O)),
+        eff_speed=u(0.5, 3.0, (B, O)), trig_alive=coin(0.8, (B, K)),
+        exit_triggered=torch.as_tensor(rng.integers(0, 3, B, dtype=np.int32), device=dev),
+        time=u(0.0, 100.0, B),
+        tick=torch.as_tensor(rng.integers(0, 10_000, B, dtype=np.int32), device=dev))
+    a = Actions(movement=u(-1.0, 1.0, (B, 2)) * ~coin(0.2, (B, 1)),
+                look=u(-0.2, 0.2, (B, 2)) * ~coin(0.3, (B, 1)), jump=coin(0.5, B),
+                fly_toggle=coin(0.1, B), clip_toggle=coin(0.1, B), push=coin(0.5, B),
+                shoot=coin(0.3, B))
+    return s, a
+
+
+def _differs(name, got, want):
+    """'' if got and want are the same bits, else what differs."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}"
+    g, w = ((got.view(torch.int32), want.view(torch.int32))
+            if got.dtype == torch.float32 else (got, want))
+    bad = (g != w).reshape(g.shape[0], -1).any(1).nonzero().flatten() if g.numel() else []
+    if len(bad) == 0:
+        return ""
+    b = int(bad[0])
+    return f"{name}: {len(bad)} envs, env {b}: {got[b].tolist()} vs {want[b].tolist()}"
+
+
+def _step_both(scene, cfg, s, a):
+    """One tick through S1, B1 and S2 on the card, S1 and S2 held bitwise
+    to their plain versions on the same inputs -> the kernels' state."""
+    from tpu_doom_torch.ops import (
+        effects_rows,
+        effects_rows_ref,
+        player_move,
+        player_triggers,
+        player_triggers_ref,
+    )
+    from tpu_doom_torch.sim.state import SimState
+
+    pcfg, dt = cfg.player, cfg.timestep
+    got1, want1 = effects_rows(scene, s, a, dt), effects_rows_ref(scene, s, a, dt)
+    assert sorted(got1[0]) == sorted(want1[0])
+    bad = [_differs(k, got1[0][k], want1[0][k]) for k in want1[0]]
+    bad += [_differs(k, x, y) for k, x, y in zip(("fly", "noclip", "rows", "state8"),
+                                                  got1[1:], want1[1:])]
+    assert not any(bad), [x for x in bad if x]
+    mv = player_move(got1[3], got1[4], radius=pcfg.radius, height=pcfg.height, dt=dt,
+                     substeps=pcfg.clip_substeps, enable_noclip=pcfg.enable_noclip)
+    got = player_triggers(scene, pcfg, dt, s, a, *got1[:3], mv)
+    want = player_triggers_ref(scene, pcfg, dt, s, a, *got1[:3], mv)
+    bad = [_differs(k, x, y) for k, x, y in zip(SimState._fields, got, want)]
+    assert not any(bad), [x for x in bad if x]
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 1024])
+@pytest.mark.parametrize("case", sorted(STEP_LEVELS))
+def test_step_kernels_match_plain_versions_on_card(cuda_device, case, B):
+    """On the card: S1 (effects, toggles, B1's rows and state) and S2 (the
+    player math after B1, the triggers, the fired effects, the clock)
+    bitwise their plain versions, every output, over 64 seeded ticks on
+    :test: 0 (doors, a lift, lights), :doom2: 0 and 1 and :test: 0 without
+    triggers or effects (K = D = 0); every other tick starts from a
+    perturbed state with random actions, the rest follow the kernels'
+    trajectory."""
+    sim, scene, s = _step_sim(case, B, cuda_device)
+    rng = np.random.default_rng([B, sorted(STEP_LEVELS).index(case)])
+    start, a = s.pos.clone(), sim.null_actions()
+    for t in range(STEP_TICKS):
+        if t % 2 == 0:
+            s, a = _perturbed(s, start, rng)
+        s = _step_both(scene, sim.config, s, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_step_kernels_trigger_scenarios_on_card(cuda_device, name):
+    """On the card: tests/test_torch_sim.py's trigger scenarios (doors,
+    the exit switch, the lift, a push out of range), 2 envs, through S1,
+    B1 and S2, each tick bitwise the plain versions; the same scenarios
+    fire."""
+    sim, scene, s = _step_sim("test0", 2, cuda_device, clip_substeps=1, enable_noclip=False)
+    pos, yaw, field, ticks = SCENARIOS[name]
+    s = s._replace(pos=torch.tensor([pos] * 2, device=cuda_device))
+    if yaw is not None:
+        s = s._replace(yaw=torch.full((2,), yaw, device=cuda_device))
+    a = sim.null_actions()
+    if field == "back":
+        a = a._replace(movement=torch.tensor([[0.0, 1.0]] * 2, device=cuda_device))
+    else:
+        a = a._replace(**{field: torch.ones(2, dtype=torch.bool, device=cuda_device)})
+    fired = False
+    for _ in range(ticks):
+        s = _step_both(scene, sim.config, s, a)
+        fired = fired or bool(s.eff_active.any() or s.exit_triggered.any())
+    assert fired == (name in FIRING), name
+
+
+@pytest.mark.cuda
+def test_step_kernels_rotations_bitwise_on_card(cuda_device):
+    """On the card: S2's cosf / sinf are torch.cos / torch.sin bit for bit
+    over a sweep of 65,536 yaws in [-4 pi, 4 pi] against pitches in
+    [-1.55, 1.55] in another order, through the walk force, the fly force
+    (half the envs fly, half jump) and the look direction (every env
+    pushes): every output of S1 and S2 bitwise their plain versions."""
+    N = 1 << 16
+    sim, scene, s = _step_sim("test0", N, cuda_device)
+    pitch = torch.linspace(-1.55, 1.55, N, device=cuda_device)
+    order = torch.as_tensor(np.random.default_rng(3).permutation(N), device=cuda_device)
+    on = torch.arange(N, device=cuda_device) % 2 == 0
+    s = s._replace(yaw=torch.linspace(-4 * np.pi, 4 * np.pi, N, device=cuda_device),
+                   pitch=pitch[order], fly=on)
+    a = sim.null_actions()._replace(
+        movement=torch.tensor([[0.6, -0.8]] * N, device=cuda_device), jump=~on,
+        push=torch.ones(N, dtype=torch.bool, device=cuda_device))
+    _step_both(scene, sim.config, s, a)
+
+
+def _node_types(graph) -> list:
+    """The CUgraphNodeType of each node of a kept CUDA graph."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t()
+    assert cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        t = ctypes.c_int()
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
+        types.append(t.value)
+    return types
+
+
+@pytest.mark.cuda
+def test_step_is_three_kernels_a_level_on_card(cuda_device, monkeypatch):
+    """On the card: the step of DoomSim, and of each level of a 2-level
+    bank, captured with spans and counters off, is three kernel nodes a
+    level (S1, B1, S2) and nothing else; replayed, each kernel launches
+    once a level a tic (`ops.launch_counts`)."""
+    from tpu_doom_torch import trace
+    from tpu_doom_torch.ops import launch_counts, reset_launch_counts
+    from tpu_doom_torch.sim.state import Actions, null_actions
+    from tpu_doom_torch.sim.step import step as sim_step
+    from tpu_doom_torch.tools.fixtures import capture_bank_tick
+
+    monkeypatch.setattr(trace, "_counters", {})  # no counter adds a node
+    sim = TorchSim(GameConfig(wad_file=":test:", width=64, height=40, batch_size=4,
+                              raster_backend="portal"), cuda_device)
+    s, a = sim.reset(), sim.null_actions()
+    bank = _bank(((":test:", 0), (":doom2:", 0)), cuda_device)
+    L, E = bank.num_levels, 4
+    bs = bank.reset(E)
+    ba = Actions(*(x.reshape((L, E) + x.shape[1:]) for x in null_actions(L * E, cuda_device)))
+
+    def bank_step():
+        for lv in range(L):
+            sim_step(bank._at(bank.scenes, lv), bank.cfg, bank._at(bs, lv), bank._at(ba, lv))
+
+    for fn, levels in ((lambda: sim.step(s, a), 1), (bank_step, L)):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.no_grad(), torch.cuda.graph(graph):
+            fn()
+        assert _node_types(graph) == [KERNEL_NODE] * 3 * levels
+
+    n = 5
+    sim.step_n(s, None, n)  # captures
+    reset_launch_counts()
+    sim.step_n(s, None, n)
+    counts = launch_counts()
+    assert counts["effects_rows"] == counts["player_move"] == counts["player_triggers"] == n
+    active = torch.ones((L, E), dtype=torch.bool, device=cuda_device)
+    tick = capture_bank_tick(bank, bs, active, ba, 64, 40)
+    reset_launch_counts()
+    for _ in range(n):
+        tick.replay()
+    counts = launch_counts()
+    assert counts["effects_rows"] == counts["player_move"] == counts["player_triggers"] == n * L
+
+
+@pytest.mark.parametrize("case", sorted(STEP_LEVELS))
+def test_step_kernel_wrappers_run_plain_versions_on_cpu(case):
+    """On the CPU, S1's and S2's wrappers run their plain versions (no
+    launch counted) on every STEP_LEVELS case, K = D = 0 included, and
+    refuse operands of another shape or dtype, as B1's does on the card."""
+    from tpu_doom_torch.ops import (
+        effects_rows,
+        effects_rows_ref,
+        player_move,
+        player_triggers,
+        player_triggers_ref,
+    )
+
+    sim, scene, s = _step_sim(case, 3, "cpu")
+    s, a = _perturbed(s, s.pos.clone(), np.random.default_rng(4))
+    pcfg, dt = sim.config.player, sim.config.timestep
+    launches = effects_rows.launches, player_triggers.launches
+    got1, want1 = effects_rows(scene, s, a, dt), effects_rows_ref(scene, s, a, dt)
+    assert all(torch.equal(got1[0][k], want1[0][k]) for k in want1[0])
+    assert all(torch.equal(x, y) for x, y in zip(got1[1:], want1[1:]))
+    mv = player_move(got1[3], got1[4], radius=pcfg.radius, height=pcfg.height, dt=dt,
+                     substeps=pcfg.clip_substeps)
+    got = player_triggers(scene, pcfg, dt, s, a, *got1[:3], mv)
+    want = player_triggers_ref(scene, pcfg, dt, s, a, *got1[:3], mv)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert (effects_rows.launches, player_triggers.launches) == launches
+    with pytest.raises(ValueError, match="effects_rows: pos"):
+        effects_rows(scene, s._replace(pos=s.pos[:, :2]), a, dt)
+    with pytest.raises(ValueError, match="effects_rows: eff_wait"):
+        effects_rows(scene, s._replace(eff_wait=s.eff_wait.double()), a, dt)
+    with pytest.raises(ValueError, match="effects_rows: bp_cells"):
+        effects_rows(scene._replace(bp_cells=scene.bp_cells.long()), s, a, dt)
+    with pytest.raises(ValueError, match="player_triggers: mv"):
+        player_triggers(scene, pcfg, dt, s, a, *got1[:3], mv[:, :10])
+    with pytest.raises(ValueError, match="player_triggers: tick"):
+        player_triggers(scene, pcfg, dt, s._replace(tick=s.tick.long()), a, *got1[:3], mv)
+    with pytest.raises(ValueError, match="player_triggers: trig_type"):
+        player_triggers(scene._replace(trig_type=scene.trig_type.float()), pcfg, dt, s, a,
+                        *got1[:3], mv)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from trigger_scenarios import FIRING, SCENARIOS
 
 from tpu_doom.models import DoomSim as JaxSim
 from tpu_doom.utils.config import GameConfig, PlayerConfig
@@ -123,16 +124,6 @@ def test_step_one_tick_matches_jax():
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
 
 
-SCENARIOS = {
-    # name: (pos, yaw, action field, ticks) from tests/test_sim.py.
-    "door_push": ([-2.56, 0.33, -5.9], None, "push", 1),
-    "exit_switch": ([-2.56, 0.68, -14.7], None, "push", 1),
-    "lift_walkover": ([-2.56, 0.66, -12.9], None, "back", 40),
-    "push_out_of_range": ([-2.56, 0.33, -7.5], float(np.pi), "push", 1),
-    "shoot_door": ([-2.56, 0.33, -5.9], None, "shoot", 1),
-}
-
-
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_trigger_scenarios_fire_like_jax(sims, name):
     """(b) Door / lift / exit scenarios fire the same triggers, effects
@@ -158,7 +149,7 @@ def test_trigger_scenarios_fire_like_jax(sims, name):
             np.testing.assert_array_equal(got[f], want[f], err_msg=f"{name} {f}")
         np.testing.assert_allclose(got["pos"], want["pos"], rtol=0, atol=1e-5)
         fired = fired or bool(want["eff_active"].any() or want["exit_triggered"].any())
-    assert fired == (name in ("door_push", "exit_switch", "lift_walkover")), name
+    assert fired == (name in FIRING), name
 
 
 # Measured max |pos| drift between the packages over the 60-tick bench

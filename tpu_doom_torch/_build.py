@@ -87,6 +87,13 @@ SIGNATURES = {
     # K, kc, n_words, wc, n_cells,
     # p11, H, stream (W2)
     "tdt_walk_records": [_P] * 17 + [_I] * 9 + [_F] * 2 + [_P],
+    # in (a host array of device pointers), its length, out (the same), its
+    # length, B, O, M, dt, stream (S1)
+    "tdt_effects_rows": [_P, _I, _P, _I, _I, _I, _I, _F, _P],
+    # in, its length, out, its length, B, K, D, O, dt, height, move_force,
+    # friction, ground_drag, air_drag, spring_p, spring_d, pitch_lo,
+    # pitch_hi, jump_vy, enable_noclip, stream (S2)
+    "tdt_player_triggers": [_P, _I, _P, _I] + [_I] * 4 + [_F] * 11 + [_I, _P],
     # out (int*): the device's opt-in shared memory per block, bytes
     "tdt_smem_optin": [_P],
     # stream (capturing), body stream, pred (bool*), handle out (u64*):

@@ -26,6 +26,7 @@ from .raster import (
     shade_portal,
     shade_portal_ref,
 )
+from .step import effects_rows, effects_rows_ref, player_triggers, player_triggers_ref
 from .walk import walk_cross, walk_cross_ref, walk_records, walk_records_ref, walk_table
 
 # name -> wrapper, for resetting and reading the launch counts.
@@ -42,6 +43,8 @@ KERNELS = {
     "walk_table": walk_table,
     "walk_cross": walk_cross,
     "walk_records": walk_records,
+    "effects_rows": effects_rows,
+    "player_triggers": player_triggers,
 }
 
 
@@ -116,4 +119,8 @@ __all__ = [
     "walk_cross_ref",
     "walk_records",
     "walk_records_ref",
+    "effects_rows",
+    "effects_rows_ref",
+    "player_triggers",
+    "player_triggers_ref",
 ]

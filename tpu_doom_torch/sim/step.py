@@ -1,24 +1,25 @@
 """The per-tick step: time, move effects, player physics, triggers.
 
 Port of `tpu_doom/sim/step.py` (step.py:26-185). With the shipped
-collision config (`collision_backend="auto"`, the broad phase on) the six
-collision sweeps per env go through kernel B1
-(`ops.collision.player_move`), which launches the CUDA kernel for CUDA
-tensors and runs its plain version for CPU tensors. `"legacy"`, or the
-broad phase off, runs the JAX package's other path: the `legacy` oracle
-(`sim/player.py:step_player`), plain PyTorch on any device, against each
-env's grid cell or, with the broad phase off, every triangle of the
-level. `step_n` is the multi-tick loop (`tpu_doom/sim/step.py:188-208`).
+collision config (`collision_backend="auto"`, the broad phase on) the
+step is three kernels: S1 (`ops.step.effects_rows`: the effects, the
+toggles and B1's rows), B1 (`ops.collision.player_move`: the six
+collision sweeps per env) and S2 (`ops.step.player_triggers`: the player
+math after the sweeps, the triggers, the clock). Each wrapper launches
+its CUDA kernel for CUDA tensors and runs its plain version, this
+module's PyTorch code, for CPU tensors. `"legacy"`, or the broad phase
+off, runs the JAX package's other path in plain PyTorch on any device:
+the `legacy` oracle (`sim/player.py:step_player`) against each env's grid
+cell or, with the broad phase off, every triangle of the level. `step_n`
+is the multi-tick loop (`tpu_doom/sim/step.py:188-208`).
 """
 
 from __future__ import annotations
 
-import torch
-
 from .. import trace
-from .collision import Contact, broadphase_rows, broadphase_triangles, offset_triangles
+from .collision import broadphase_triangles, offset_triangles
 from .effects import animate_effects
-from .player import look_direction, step_player, step_player_with_moves
+from .player import look_direction, step_player
 from .state import Actions, SimState
 from .triggers import apply_fired, poll_triggers
 
@@ -44,62 +45,67 @@ def step(scene, cfg, state: SimState, actions: Actions) -> SimState:
         return _step(scene, cfg, state, actions)
 
 
+def effects_and_toggles(state: SimState, actions: Actions, dt: float):
+    """The move effects animated by one tick (`animate_effects`' dict of
+    (B, O) fields), and the fly and noclip toggles applied."""
+    return (animate_effects(state, dt), state.fly ^ actions.fly_toggle,
+            state.noclip ^ actions.clip_toggle)
+
+
+def poll_and_apply(scene, dt, state: SimState, actions: Actions, eff, fly, noclip,
+                   ps) -> SimState:
+    """The triggers polled from the moved player `ps` (a PlayerStep),
+    the fired ones applied to the effects `eff`: the new state."""
+    # `moved` uses the post-move velocity, as the reference.
+    moved = ps.vel * dt
+    look3 = look_direction(ps.yaw, ps.pitch)
+    fired = poll_triggers(scene, ps.pos[:, 0], ps.pos[:, 2], moved, look3,
+                          actions.push, actions.shoot)
+    trig_alive, exit_triggered, eff_d = apply_fired(
+        scene, fired, state.trig_alive, state.exit_triggered,
+        {k: eff[k] for k in _EFF},
+    )
+    return SimState(
+        pos=ps.pos, vel=ps.vel, yaw=ps.yaw, pitch=ps.pitch, fly=fly,
+        noclip=noclip, last_height_diff=ps.last_height_diff,
+        object_offset=eff["object_offset"],
+        **{k: eff_d[k] for k in _EFF},
+        trig_alive=trig_alive, exit_triggered=exit_triggered, time=state.time + dt,
+        tick=state.tick + 1,
+    )
+
+
 def _step(scene, cfg, state: SimState, actions: Actions) -> SimState:
     from ..ops.collision import player_move
+    from ..ops.step import effects_rows, player_triggers
 
     dt = cfg.timestep
-    time = state.time + dt
-    with trace.span("effects"):
-        eff = animate_effects(state, dt)
-    object_offset = eff["object_offset"]
-    fly = state.fly ^ actions.fly_toggle
-    noclip = state.noclip ^ actions.clip_toggle
-
     pcfg = cfg.player
-    with trace.span("player"):
-        if pcfg.collision_backend == "auto" and pcfg.collision_broadphase:
-            rows = broadphase_rows(scene, object_offset, state.pos)  # (B, 13, M)
-            zeros2 = torch.zeros_like(state.pos[:, :2])
-            state8 = torch.cat([state.pos, state.vel, zeros2], dim=1)
+    if pcfg.collision_backend == "auto" and pcfg.collision_broadphase:
+        with trace.span("effects"):
+            eff, fly, noclip, rows, state8 = effects_rows(scene, state, actions, dt)
+        with trace.span("player"):
             mv = player_move(
                 rows, state8, radius=pcfg.radius, height=pcfg.height, dt=dt,
                 substeps=pcfg.clip_substeps, enable_noclip=pcfg.enable_noclip,
             )
-            ps = step_player_with_moves(
-                pcfg, dt, Contact(time=mv[:, 0], normal=mv[:, 1:4]), mv[:, 4:7],
-                mv[:, 7:10], mv[:, 10], state.pos, state.vel, state.yaw,
-                state.pitch, fly, noclip, state.last_height_diff, actions.movement,
-                actions.look, actions.jump,
-            )
-        else:
-            if pcfg.collision_broadphase:
-                tris = broadphase_triangles(scene, object_offset, state.pos)
-            else:
-                tris = (*offset_triangles(scene, object_offset), scene.coll_normal)
-            ps = step_player(
-                pcfg, dt, tris, state.pos, state.vel, state.yaw, state.pitch, fly,
-                noclip, state.last_height_diff, actions.movement, actions.look,
-                actions.jump,
-            )
+        with trace.span("triggers"):
+            return player_triggers(scene, pcfg, dt, state, actions, eff, fly, noclip, mv)
 
-    # Triggers: `moved` uses the post-move velocity, as the reference.
+    with trace.span("effects"):
+        eff, fly, noclip = effects_and_toggles(state, actions, dt)
+    with trace.span("player"):
+        if pcfg.collision_broadphase:
+            tris = broadphase_triangles(scene, eff["object_offset"], state.pos)
+        else:
+            tris = (*offset_triangles(scene, eff["object_offset"]), scene.coll_normal)
+        ps = step_player(
+            pcfg, dt, tris, state.pos, state.vel, state.yaw, state.pitch, fly,
+            noclip, state.last_height_diff, actions.movement, actions.look,
+            actions.jump,
+        )
     with trace.span("triggers"):
-        moved = ps.vel * dt
-        look3 = look_direction(ps.yaw, ps.pitch)
-        fired = poll_triggers(scene, ps.pos[:, 0], ps.pos[:, 2], moved, look3,
-                              actions.push, actions.shoot)
-        trig_alive, exit_triggered, eff_d = apply_fired(
-            scene, fired, state.trig_alive, state.exit_triggered,
-            {k: eff[k] for k in _EFF},
-        )
-        return SimState(
-            pos=ps.pos, vel=ps.vel, yaw=ps.yaw, pitch=ps.pitch, fly=fly,
-            noclip=noclip, last_height_diff=ps.last_height_diff,
-            object_offset=object_offset,
-            **{k: eff_d[k] for k in _EFF},
-            trig_alive=trig_alive, exit_triggered=exit_triggered, time=time,
-            tick=state.tick + 1,
-        )
+        return poll_and_apply(scene, dt, state, actions, eff, fly, noclip, ps)
 
 
 def step_n(scene, cfg, state: SimState, action_seq, n: int, *, graphs=None) -> SimState:

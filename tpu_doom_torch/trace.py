@@ -35,7 +35,13 @@ opens it. The spans of the main path:
                            before its tick, so under the next tick's id)
     tick                   one tick, captured or eager
       step                 sim/step.py; a bank's per level
-        effects, player, triggers
+        effects            kernel S1 (csrc/step.cu): effects, toggles, B1's rows
+        player             kernel B1 (csrc/player_move.cu): the sweeps
+        triggers           kernel S2 (csrc/step.cu): the player math after
+                           the sweeps, the triggers, the clock
+                           (`legacy` or the broad phase off: the same
+                           spans around the plain effects, the oracle's
+                           sweeps and player math, the plain triggers)
       migrate              LevelBank.step_with_exits after the step
       render               render_dispatch; a bank's per level
         walk, raster, fallback
