@@ -1,4 +1,5 @@
-"""The WAD files a cell loads, and the metadata file beside them.
+"""The WAD files a cell loads, the metadata file beside them, and the
+GameConfig fields a configuration sets.
 
 A configuration names each level's WAD either as a fixture of the
 benchmark's frozen generator (`reference/wad/wadgen.py`: ':test:',
@@ -12,6 +13,7 @@ measured.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 import tempfile
@@ -21,14 +23,32 @@ ROOT = os.path.dirname(HERE)
 METADATA = os.path.join(HERE, "inputs", "doom.toml")
 
 
+# GameConfig fields the harness sets itself, from the configuration's own
+# keys (`levels`, `envs_per_level`, `width`, `height`, `game.clip_substeps`)
+# and the metadata beside the WADs; a configuration's `game` may not set them.
+HARNESS_FIELDS = ("wad_file", "initial_level_index", "batch_size", "player", "width",
+                  "height", "metadata_file")
+
+
 def game_fields(config: dict) -> dict:
     """The GameConfig fields a configuration file sets, besides the WAD,
-    the batch and the player, in either side's GameConfig."""
-    g = config["game"]
-    return dict(width=int(config["width"]), height=int(config["height"]),
-                raster_backend=g["raster_backend"],
-                portal_crossings=int(g["portal_crossings"]),
-                portal_compact_crossings=int(g["portal_compact_crossings"]),
+    the batch and the player, for either side's GameConfig: every key of
+    its `game` under its own name, but `clip_substeps` (the PlayerConfig
+    field the drivers read). A key that is not a field of both the port's
+    and the reference's GameConfig, or that the harness sets itself,
+    raises."""
+    from reference.utils.config import GameConfig as ReferenceConfig
+    from tpu_doom_torch.utils.config import GameConfig as PortConfig
+
+    both = ({f.name for f in dataclasses.fields(PortConfig)}
+            & {f.name for f in dataclasses.fields(ReferenceConfig)})
+    game = {k: v for k, v in config["game"].items() if k != "clip_substeps"}
+    for key in game:
+        if key not in both or key in HARNESS_FIELDS:
+            raise ValueError(f"configuration {config.get('name')!r}: game key {key!r} is not"
+                             " a GameConfig field of both the port and the reference that"
+                             " a configuration may set")
+    return dict(game, width=int(config["width"]), height=int(config["height"]),
                 metadata_file=METADATA)
 
 

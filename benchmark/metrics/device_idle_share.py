@@ -3,8 +3,8 @@ none of the program's outermost spans (`tick`, `actions`, `frames`) over
 the span window's first start to last end, read from the port's
 device-clock stamps with no profiler attached (`harness/spans.py`)."""
 
-from harness.spans import reading
+from harness.spans import idle_share
 
 
 def read(ctx):
-    return reading(ctx, "device_idle_share")
+    return idle_share(ctx)

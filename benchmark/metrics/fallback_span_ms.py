@@ -4,8 +4,8 @@ profiler's trace does not show) and its glue, stamped on the main stream
 before and after it, per agent step of the span window
 (`harness/spans.py`)."""
 
-from harness.spans import reading
+from harness.spans import span_ms
 
 
 def read(ctx):
-    return reading(ctx, "fallback_span_ms")
+    return span_ms(ctx, "fallback", "step")

@@ -3,8 +3,8 @@ the span window (`harness/spans.py`): a bank's stack of its levels'
 frames inside the graph, or `DoomSim.rollout`'s copy of the graph's frame
 out."""
 
-from harness.spans import reading
+from harness.spans import span_ms
 
 
 def read(ctx):
-    return reading(ctx, "frames_span_ms")
+    return span_ms(ctx, "frames", "step")

@@ -2,8 +2,8 @@
 (`LevelBank.step_with_exits` after the step: exit flags, slot migration,
 the fresh states) per tic of the span window (`harness/spans.py`)."""
 
-from harness.spans import reading
+from harness.spans import span_ms
 
 
 def read(ctx):
-    return reading(ctx, "migrate_span_ms")
+    return span_ms(ctx, "migrate", "tic")

@@ -2,8 +2,8 @@
 of the span window, counted on the device by the port (`trace.counts()`,
 `harness/spans.py`)."""
 
-from harness.spans import reading
+from harness.spans import counter
 
 
 def read(ctx):
-    return reading(ctx, "migrated_envs")
+    return counter(ctx, "migrated_envs", "tic")

@@ -2,8 +2,8 @@
 fallback per agent step (per rendered frame) of the span window, counted
 on the device by the port (`trace.counts()`, `harness/spans.py`)."""
 
-from harness.spans import reading
+from harness.spans import counter
 
 
 def read(ctx):
-    return reading(ctx, "overflow_envs")
+    return counter(ctx, "overflow_envs", "step")

@@ -2,8 +2,8 @@
 glue: the sky's coordinates, the arguments) summed over levels, per agent
 step of the span window (`harness/spans.py`)."""
 
-from harness.spans import reading
+from harness.spans import span_ms
 
 
 def read(ctx):
-    return reading(ctx, "raster_span_ms")
+    return span_ms(ctx, "raster", "step")

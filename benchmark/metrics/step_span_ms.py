@@ -2,8 +2,8 @@
 player, triggers; a bank's one per level) summed, per tic of the span
 window (`harness/spans.py`): the step timed inside the tick that runs."""
 
-from harness.spans import reading
+from harness.spans import span_ms
 
 
 def read(ctx):
-    return reading(ctx, "step_span_ms")
+    return span_ms(ctx, "step", "tic")

@@ -128,3 +128,36 @@ def test_every_cell_reports_what_it_must(manifest):
         assert cell.metrics("per_layer")
     roofs = [m for m in manifest["per_layer"] if m["name"].endswith("_roofline")]
     assert roofs and all(m["unit"] == "%" for m in roofs)
+
+
+SPANS = {"step_ms", "walk_ms", "w2_roofline", "b2_roofline", "fallback_blocks",
+         "device_idle_share", "step_span_ms", "walk_span_ms", "raster_span_ms",
+         "fallback_span_ms", "frames_span_ms", "overflow_envs"}
+BANK = {"migrate_span_ms", "migrated_envs"}
+
+
+@pytest.mark.parametrize("cell, end_to_end, per_layer", [
+    ("synth_b1024.fs1", {"env_frames_per_s", "setup_s"}, SPANS),
+    ("synthbank4_b4096.fs1", {"env_frames_per_s", "agent_step_ms_p95", "setup_s"}, SPANS | BANK),
+    ("synth_b1024.fs4", {"env_frames_per_s", "agent_step_ms_p95", "setup_s"}, SPANS),
+    ("synthbank4_b4096.fs4", {"env_frames_per_s", "agent_step_ms_p95", "setup_s"},
+     SPANS | BANK),
+])
+def test_cells_report_what_they_reported(manifest, cell, end_to_end, per_layer):
+    """The metrics without a cell list reach the four cells by the rule of
+    `Cell.metrics`, which gives each the set it reported when every
+    per-layer metric listed them."""
+    from harness.cell import Cell
+
+    c = Cell(cell, manifest)
+    assert {m["name"] for m in c.metrics("end_to_end")} == end_to_end
+    assert {m["name"] for m in c.metrics("per_layer")} == per_layer
+
+
+def test_cell_lists_only_where_a_metric_cannot_hold_for_every_cell(manifest):
+    listed = {m["name"] for m in manifest["per_layer"] + manifest["end_to_end"]
+              if "workloads" in m}
+    # The bank's migration; two outside timings queued for retirement; the
+    # p95 left out of synth_b1024.fs1 for its spread.
+    assert listed == {"migrate_span_ms", "migrated_envs", "step_ms", "walk_ms",
+                      "agent_step_ms_p95"}
