@@ -1213,14 +1213,14 @@ def phase_walk(results, suffix, label, pscene, scene, cfg, width, height, state,
     W1 also beside the one torch.sort(td, dim=2, stable=True) its plain
     version makes. `row`: kept as the rows `walk_*<suffix>`, else printed
     only. `shifted`: W2 must take the active set's texel shift. W0's
-    bound: its outputs (the table, the endpoints, ordv and the overflow),
-    the env inputs and the level arrays it reads, each once. W1's
-    bound: its inputs (the six prefix columns of the table) and outputs, or
-    CROSS_TEST_OPS per (env, column, row); W2's: the kept crossings'
-    W1 outputs, the 32-byte sectors of the table rows they select (or,
-    where W2 reads B4's selection, its W2_SEL_COLS columns), the alpha
-    table and the outputs, or RECORD_OPS per kept crossing and column.
-    Returns W2's overflow."""
+    bound: its outputs (the table, the endpoints, ordv, the overflow and
+    the visible-row count), the env inputs and the level arrays it reads,
+    each once. W1's bound: its inputs (the six prefix columns of the
+    table) and outputs, or CROSS_TEST_OPS per (env, column, row); W2's:
+    the kept crossings' W1 outputs, the 32-byte sectors of the table rows
+    they select (or, where W2 reads B4's selection, its W2_SEL_COLS
+    columns), the alpha table and the outputs, or RECORD_OPS per kept
+    crossing and column. Returns W2's overflow."""
     from tpu_doom_torch.ops.walk import (
         PREFIX_COLS,
         compact_order,
@@ -1246,7 +1246,7 @@ def phase_walk(results, suffix, label, pscene, scene, cfg, width, height, state,
     del want
     ms, b2b = kernel_ms(lambda: walk_table(*targs))
     plain = time_ms(lambda: walk_table_ref(*targs))
-    table, _, _, ordv, tovf = got
+    table, _, _, ordv, tovf, _ = got
     sv = targs[10]
     print(f"[kernel] W0 walk_table {label}: B {table.shape[0]}, rows"
           f" {targs[0]['has_back'].shape[0]} -> table {tuple(table.shape)}, cull"

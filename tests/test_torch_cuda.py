@@ -1213,6 +1213,87 @@ def test_untraced_capture_has_the_nodes_of_one_without_trace(cuda_device, monkey
         trace.disable()
 
 
+def _w0_args(sim, s, width, height):
+    """The arguments the port's walk of state `s` gives W0."""
+    from tpu_doom_torch.render import portal as P
+
+    calls, walk_table = [], P.walk_table
+
+    def spied(*args):
+        calls.append(args)
+        return walk_table(*args)
+
+    P.walk_table = spied
+    try:
+        P.walk(sim.portal_scene(), sim.scene, sim.config, width, height,
+               int(sim.config.portal_crossings), s,
+               active_segs=P.active_segs(sim.portal_scene(), sim.config))
+    finally:
+        P.walk_table = walk_table
+    (args,) = calls
+    return args
+
+
+@pytest.mark.cuda
+def test_big_level_visible_rows_and_traced_tick_on_card(cuda_device, monkeypatch):
+    """On the card at the :texstress: shape (256 envs at 320x200, 600 walk
+    rows culled to 448): W0's outputs, its count of visible rows with
+    them, bitwise its plain version's; a tick captured untraced and its
+    traced twin give the same state and frames bitwise; the twin opens
+    `select` once, under `walk`, and counts the visible rows and cull
+    overflows of the plain cull of the state it rendered."""
+    import math
+
+    from tpu_doom_torch import trace
+    from tpu_doom_torch.graphs import CapturedTick
+    from tpu_doom_torch.ops import walk_table
+    from tpu_doom_torch.render.portal import walk_table_ref
+
+    W, H, B = 320, 200, 256
+    sim = TorchSim(GameConfig(wad_file=":texstress:", width=W, height=H, batch_size=B,
+                              raster_backend="portal"), cuda_device)
+    s0 = sim.reset()
+    s0 = s0._replace(yaw=torch.arange(B, dtype=torch.float32, device=cuda_device)
+                     * (2 * math.pi / B))
+    targs = _w0_args(sim, s0, W, H)
+    got, want = walk_table(*targs), walk_table_ref(*targs)
+    assert targs[10] == 448 and got[0].shape == (B, 448, 74)
+    assert all(_bitwise(x, y) for x, y in zip(got, want))
+    assert got[5].dtype == torch.int32 and bool((got[5] > 0).any())
+
+    monkeypatch.setattr(trace, "_counters", {})  # none made yet
+    graphs = sim.tick_graphs()
+
+    def tick(s, a):
+        s = graphs.step(s, a)
+        return s, graphs.render(s, W, H)
+
+    def capture():
+        return CapturedTick(tick, type(s0)(*(x.clone() for x in s0)), sim.null_actions())
+
+    off = capture()
+    trace.enable(cuda_device)
+    try:
+        on = capture()
+        trace.disable()
+        off.replay()
+        want = [x.clone() for x in (*off.state_buf, off.outs[0])]
+        trace.enable(cuda_device)
+        on.replay()
+        got = [*on.state_buf, on.outs[0]]
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        rec = trace.spans()
+        selects = [s for s in rec.spans if s.name == "select"]
+        assert len(selects) == 1 and rec.spans[selects[0].parent].name == "walk"
+        counts = trace.counts()
+    finally:
+        trace.disable()
+    _, _, _, _, overflow, n_vis = walk_table_ref(
+        *_w0_args(sim, type(s0)(*on.state_buf), W, H))
+    assert counts["visible_rows"] == int(n_vis.sum()) > 0
+    assert counts["cull_overflow_envs"] == int(overflow.sum())
+
+
 @pytest.mark.cuda
 def test_stamps_lie_inside_their_kernels_in_a_profiler_trace(cuda_device):
     """On the card: every device stamp of a traced rollout, mapped onto the

@@ -78,7 +78,8 @@ def test_tracing_off_changes_and_records_nothing(monkeypatch):
     assert trace.session() is None
     trace.enable("cpu")
     rec = trace.spans()
-    assert rec.spans == [] and trace.counts() == {"overflow_envs": 0, "migrated_envs": 0}
+    assert rec.spans == [] and trace.counts() == {
+        "overflow_envs": 0, "migrated_envs": 0, "cull_overflow_envs": 0, "visible_rows": 0}
 
 
 @pytest.mark.parametrize("every", [1, 4])
@@ -269,7 +270,111 @@ def test_counter_counts_with_tracing_off(monkeypatch):
     trace.enable("cpu")
     assert int(fallen) == 0  # enable() zeroes it
     sim.rollout(s0, _seq(4), 4, render_every=1)
-    assert off > 0 and trace.counts() == {"overflow_envs": off, "migrated_envs": 0}
+    assert off > 0 and trace.counts() == {
+        "overflow_envs": off, "migrated_envs": 0, "cull_overflow_envs": 0, "visible_rows": 0}
+
+
+BIG = ":texstress:10x16"  # 257 walk rows: the cull (to 256), B4's selection, W2 reading it
+
+
+def _big_sim(**kw):
+    """:texstress:10x16 at 64x40, the four envs facing four ways."""
+    sim = DoomSim(GameConfig(wad_file=BIG, width=W, height=H, batch_size=B,
+                             raster_backend="portal",
+                             player=PlayerConfig(clip_substeps=4), **kw), "cpu")
+    s0 = sim.reset()
+    return sim, s0._replace(yaw=torch.tensor([0.0, 1.6, 3.2, 4.8]))
+
+
+def _plain_visible(monkeypatch):
+    """Spy on W0's calls in the walk: each call's count of visible rows
+    per env and overflow, both from the plain cull (`_visible_rows` on
+    the level's uncut endpoints, `walk_table_ref` with no budget), and
+    its budget SV."""
+    from tpu_doom_torch.render import portal as P
+
+    seen = []
+    walk_table = P.walk_table
+
+    def spied(*targs):
+        sv = targs[10]
+        _, p1, p2, *_ = P.walk_table_ref(*targs[:10], 0, *targs[11:])
+        pt, _, _, _, right, fwd, o, p00, near, far = targs[:10]
+        n = P._visible_rows(p1, p2, o, fwd, right, p00, near, far).sum(dim=1)
+        seen.append((sv, n, n > sv))
+        return walk_table(*targs)
+
+    monkeypatch.setattr(P, "walk_table", spied)
+    return seen
+
+
+@pytest.mark.parametrize("every", [1, 2])
+def test_big_level_rollout_span_tree(every):
+    """On a big level `walk` holds a `select` span (kernel B4) on every
+    rendered tic, and `select` opens nowhere else: one per render."""
+    sim, s0 = _big_sim()
+    n = 4
+    trace.enable("cpu")
+    sim.rollout(s0, _seq(n), n, render_every=every)
+    rec = trace.spans()
+    _check_tree(rec)
+    walks = [s for s in rec.spans if s.name == "walk"]
+    assert len(walks) == n // every
+    for w in walks:
+        assert _children(rec, w) == ["select"]
+    selects = [s for s in rec.spans if s.name == "select"]
+    assert len(selects) == len(walks)
+    assert all(rec.spans[s.parent].name == "walk" for s in selects)
+    for render in (s for s in rec.spans if s.name == "render"):
+        assert _children(rec, render) == list(RENDER_KIDS)
+
+
+def test_visible_rows_is_the_plain_culls_count(monkeypatch):
+    """visible_rows sums, over the rendered tics, each env's visible rows
+    as the plain cull counts them; every env fits the AUTO budget here,
+    so cull_overflow_envs reads 0."""
+    seen = _plain_visible(monkeypatch)
+    sim, s0 = _big_sim()
+    trace.enable("cpu")
+    sim.rollout(s0, _seq(4), 4, render_every=2)
+    assert len(seen) == 2 and all(sv == 256 for sv, _, _ in seen)
+    counts = trace.counts()
+    assert counts["visible_rows"] == sum(int(n.sum()) for _, n, _ in seen) > 0
+    assert counts["cull_overflow_envs"] == sum(int(o.sum()) for _, _, o in seen) == 0
+
+
+def test_cull_overflow_envs_is_the_plain_culls_overflow(monkeypatch):
+    """With the visible-row budget forced down to 64 rows,
+    cull_overflow_envs sums the envs the plain cull sends over it; on
+    :test: (no cull) both cull counters read 0."""
+    seen = _plain_visible(monkeypatch)
+    sim, s0 = _big_sim(portal_visible_segs=64)
+    trace.enable("cpu")
+    sim.rollout(s0, _seq(2), 2, render_every=1)
+    assert len(seen) == 2 and all(sv == 64 for sv, _, _ in seen)
+    counts = trace.counts()
+    want = sum(int(o.sum()) for _, _, o in seen)
+    assert counts["cull_overflow_envs"] == want > 0
+    assert counts["visible_rows"] == sum(int(n.sum()) for _, n, _ in seen)
+    assert counts["overflow_envs"] >= want
+
+    seen.clear()
+    sim, s0 = _sim()
+    trace.reset()
+    sim.rollout(s0, _seq(2), 2, render_every=1)
+    assert seen and all(sv == 0 for sv, _, _ in seen)
+    counts = trace.counts()
+    assert counts["cull_overflow_envs"] == counts["visible_rows"] == 0
+
+
+@pytest.mark.parametrize("every", [1, 2])
+def test_big_level_tracing_on_leaves_outputs_as_off(every):
+    sim, s0 = _big_sim()
+    off = _rollout(sim, s0, 4, every)
+    trace.enable("cpu")
+    on = _rollout(sim, s0, 4, every)
+    assert _equal(on[0], off[0]) and on[1] == off[1]
+    assert trace.counts()["visible_rows"] > 0
 
 
 def test_ring_wrap_reports_dropped_ticks(monkeypatch):

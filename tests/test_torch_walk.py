@@ -325,14 +325,15 @@ def test_walk_table_matches_jax_bitwise(jax_walks, group):
     walk gives W0) against the JAX walk's own attribute table, endpoints
     and cull, bitwise: the table (B, SD', 74) and p1, p2 as int32 bits;
     on big levels the kept rows `ordv` equal to the first SV of JAX's
-    stable argsort and the overflow to its visible count > SV. The
+    stable argsort, the visible-row count to JAX's visible count and the
+    overflow to that count > SV. The
     level's `walk_static` equals the table's STATIC_COLS, the columns it
     replaces, in every env (at the kept rows under the cull, `+ 0.0`)."""
     from tpu_doom_torch.ops.walk import C_CA, STATIC_COLS
     from tpu_doom_torch.render.portal import walk_table_ref
 
     *_, pt, targs, _, _ = _port_walk(group, jax_walks)
-    table, p1, p2, ordv, overflow = walk_table_ref(*targs)
+    table, p1, p2, ordv, overflow, n_vis = walk_table_ref(*targs)
     want = np.load(jax_walks)
     key = f"{group}/walk_table/"
     for name, got in (("table", table), ("p1", p1), ("p2", p2)):
@@ -357,9 +358,10 @@ def test_walk_table_matches_jax_bitwise(jax_walks, group):
     if cull:
         np.testing.assert_array_equal(ordv.numpy(), want[key + "order"][:, :sv])
         np.testing.assert_array_equal(overflow.numpy(), want[key + "visible"] > sv)
+        np.testing.assert_array_equal(n_vis.numpy(), want[key + "visible"])
         static = static[ordv] + 0.0  # (B, SV, 40)
     else:
-        assert not bool(overflow.any())
+        assert not bool(overflow.any()) and n_vis is None
     np.testing.assert_array_equal(_bits(static.expand(table.shape[0], -1, -1).numpy()),
                                   _bits(table[:, :, STATIC_COLS].numpy()))
     if group == "offsets":  # the offset, animated floor and scrolled u columns move

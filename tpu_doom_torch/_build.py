@@ -76,9 +76,10 @@ SIGNATURES = {
     # idx, tab, out, n, S, iters, grid, variant, stream
     "tdt_onehot_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # level (a host array of device pointers), its length, objoff, time,
-    # lights, right, fwd, o, table, p1, p2, ordv (or null), overflow, B, S,
-    # D, O, L, SV, xvmax, near, far, flats_w, walls_w, stream (W0)
-    "tdt_walk_table": [_P, _I] + [_P] * 11 + [_I] * 6 + [_F] * 5 + [_P],
+    # lights, right, fwd, o, table, p1, p2, ordv and n_visible (or null),
+    # overflow, B, S, D, O, L, SV, xvmax, near, far, flats_w, walls_w,
+    # stream (W0)
+    "tdt_walk_table": [_P, _I] + [_P] * 12 + [_I] * 6 + [_F] * 5 + [_P],
     # p1, p2, o, d, table, cyw, shear, t, u, idx, live, top, bot, mask,
     # B, SD, C, W, K, near, far, p11, H, stream (W1)
     "tdt_walk_cross": [_P] * 14 + [_I] * 5 + [_F] * 4 + [_P],

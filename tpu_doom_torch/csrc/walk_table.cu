@@ -15,11 +15,11 @@
 //
 // Per env: table (SD', 74) f32, the rows' endpoints p1, p2 (SD', 2)
 // (sprites as billboards facing the camera), and on big levels (0 < SV <
-// SD) ordv (SV,) i64, the level rows kept in order, and the overflow flag
-// (more than SV rows visible); SD' = SV there, else SD. The table's 40
-// columns that depend on no env come from the level's `walk_static`
-// array, computed once per level (render/portal.py:_walk_static); the 34
-// others (heights with the objects' offsets, the sky substitutions, light
+// SD) ordv (SV,) i64, the level rows kept in order, the count of visible
+// rows n_visible i32 and the overflow flag (more than SV rows visible);
+// SD' = SV there, else SD. The table's 40 columns that depend on no env
+// come from the level's `walk_static` array, computed once per level
+// (render/portal.py:_walk_static); the 34 others (heights with the objects' offsets, the sky substitutions, light
 // levels, animated atlas bases and texel bases, the scrolled u) are
 // computed here from the level's row arrays and the env's offsets, time
 // and lights.
@@ -228,8 +228,8 @@ __global__ void __launch_bounds__(kThreads) walk_table_kernel(
     const float* __restrict__ lights, const float* __restrict__ right,
     const float* __restrict__ fwd, const float* __restrict__ o,
     float* __restrict__ table, float* __restrict__ p1o, float* __restrict__ p2o,
-    int64_t* __restrict__ ordv, bool* __restrict__ overflow, int S, int D, int O,
-    int L, int SV, float xvmax, float near_, float far_, float flats_w,
+    int64_t* __restrict__ ordv, int* __restrict__ n_visible, bool* __restrict__ overflow,
+    int S, int D, int O, int L, int SV, float xvmax, float near_, float far_, float flats_w,
     float walls_w) {
   extern __shared__ float s_tile[];  // kThreads x kPitch
   int* s_map = reinterpret_cast<int*>(s_tile + kThreads * kPitch);  // kStatic
@@ -272,6 +272,7 @@ __global__ void __launch_bounds__(kThreads) walk_table_kernel(
         acc += __popc(s_bits[w]);
       }
       s_wpre[n_words] = acc;
+      n_visible[b] = acc;
       overflow[b] = acc > SV;
     }
     __syncthreads();
@@ -324,16 +325,17 @@ __global__ void __launch_bounds__(kThreads) walk_table_kernel(
 
 // level: a host array of kLevelPtrs device pointers (struct Level's
 // order); B envs; S segs, D sprites; O objects; L light levels; SV the
-// cull's budget (0: no cull). ordv may be null where SV is 0.
+// cull's budget (0: no cull). ordv and n_visible may be null where SV is 0.
 extern "C" int tdt_walk_table(const void* const* level, int n_level, const void* objoff,
                               const void* time, const void* lights, const void* right,
                               const void* fwd, const void* o, void* table, void* p1o,
-                              void* p2o, void* ordv, void* overflow, int B, int S, int D,
-                              int O, int L, int SV, float xvmax, float near_, float far_,
-                              float flats_w, float walls_w, void* stream) {
+                              void* p2o, void* ordv, void* n_visible, void* overflow,
+                              int B, int S, int D, int O, int L, int SV, float xvmax,
+                              float near_, float far_, float flats_w, float walls_w,
+                              void* stream) {
   const int SD = S + D;
   if (n_level != kLevelPtrs || SD < 1 || O < 1 || L < 1 || SV < 0 || SV >= SD ||
-      (SV > 0 && !ordv))
+      (SV > 0 && (!ordv || !n_visible)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   Level lv;
@@ -354,7 +356,7 @@ extern "C" int tdt_walk_table(const void* const* level, int n_level, const void*
   walk_table_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       lv, (const float*)objoff, (const float*)time, (const float*)lights,
       (const float*)right, (const float*)fwd, (const float*)o, (float*)table,
-      (float*)p1o, (float*)p2o, (int64_t*)ordv, (bool*)overflow, S, D, O, L, SV, xvmax,
-      near_, far_, flats_w, walls_w);
+      (float*)p1o, (float*)p2o, (int64_t*)ordv, (int*)n_visible, (bool*)overflow, S, D, O,
+      L, SV, xvmax, near_, far_, flats_w, walls_w);
   return (int)cudaGetLastError();
 }

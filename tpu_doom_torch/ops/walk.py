@@ -10,8 +10,9 @@ kernels for that code.
 W0 `walk_table` (csrc/walk_table.cu `walk_table_kernel`), per env: the
 (B, S+D, 74) attribute table of the walk rows (segs, then sprites) and
 their endpoints, and on big levels the visible-seg cull: the first SV
-rows of the stable partition visible-first, their level row ids and the
-env's overflow. Its plain version is `render/portal.py:walk_table_ref`.
+rows of the stable partition visible-first, their level row ids, the
+env's count of visible rows and its overflow. Its plain version is
+`render/portal.py:walk_table_ref`.
 
 W1 and W2, per env and screen column:
 
@@ -154,8 +155,9 @@ def walk_table(pt, lights_f, objoff, time, right, fwd, o, p00: float, near: floa
                far: float, sv: int, flats_w: float, walls_w: float, aligned: bool):
     """W0 for CUDA tensors, its plain version for CPU tensors (arguments
     and outputs as `render.portal.walk_table_ref`: (table, p1, p2, ordv or
-    None, overflow)). The kernel copies the columns that depend on no env
-    from the level's `walk_static` and computes the others."""
+    None, overflow, n_vis or None)). The kernel copies the columns that
+    depend on no env from the level's `walk_static` and computes the
+    others."""
     if time.device.type == "cpu":
         from ..render.portal import walk_table_ref
 
@@ -187,19 +189,20 @@ def walk_table(pt, lights_f, objoff, time, right, fwd, o, p00: float, near: floa
     table = torch.empty((B, SDo, TABLE_COLS), dtype=torch.float32, device=dev)
     p1, p2 = (torch.empty((B, SDo, 2), dtype=torch.float32, device=dev) for _ in range(2))
     ordv = torch.empty((B, sv), dtype=torch.int64, device=dev) if sv else None
+    n_vis = torch.empty((B,), dtype=torch.int32, device=dev) if sv else None
     overflow = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
-        return table, p1, p2, ordv, overflow.fill_(False)
+        return table, p1, p2, ordv, overflow.fill_(False), n_vis
     ptrs = (ctypes.c_void_p * len(level))(*(x.data_ptr() for x in level))
     check(load().tdt_walk_table(
         ctypes.addressof(ptrs), len(level), *(x.data_ptr() for x in env),
         table.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-        0 if ordv is None else ordv.data_ptr(), overflow.data_ptr(),
+        *(0 if x is None else x.data_ptr() for x in (ordv, n_vis)), overflow.data_ptr(),
         B, S, SD - S, objoff.shape[1], lights_f.shape[1], sv, f32(1.0 / p00),
         near, far, flats_w, walls_w, torch.cuda.current_stream(dev).cuda_stream,
     ), "walk_table")
     walk_table.launches += 1
-    return table, p1, p2, ordv, overflow
+    return table, p1, p2, ordv, overflow, n_vis
 
 
 walk_table.launches = 0

@@ -523,9 +523,10 @@ def walk_table_ref(pt, lights_f, objoff, time, right, fwd, o, p00: float,
     layout. Returns the table (B, SD', 74) f32, the rows' endpoints p1,
     p2 (B, SD', 2) (sprites as billboards facing the camera), `ordv` (B,
     sv) int64, the level rows the cull kept in order (visible rows first
-    in row order, then the invisible ones: a stable sort), or None, and
-    the overflow (B,) bool (more than sv rows visible). SD' is sv where
-    sv > 0, else the level's S+D rows."""
+    in row order, then the invisible ones: a stable sort), or None, the
+    overflow (B,) bool (more than sv rows visible), and each env's count
+    of visible rows (B,) int32, or None. SD' is sv where sv > 0, else the
+    level's S+D rows."""
     B = time.shape[0]
     SD = pt["has_back"].shape[0]
     ls = lights_f.shape[1]
@@ -606,14 +607,15 @@ def walk_table_ref(pt, lights_f, objoff, time, right, fwd, o, p00: float,
     p2 = torch.cat([pt["p2"].expand(B, -1, -1), spc + sp_off], dim=1)
 
     overflow = torch.zeros((B,), dtype=torch.bool, device=time.device)
-    ordv = None
+    ordv = n_vis = None
     if sv:
         vis = _visible_rows(p1, p2, o, fwd, right, p00, near, far)
-        overflow = vis.sum(dim=1) > sv
+        n_vis = vis.sum(dim=1).to(torch.int32)
+        overflow = n_vis > sv
         ordv = torch.sort((~vis).to(torch.int32), dim=1, stable=True).indices[:, :sv]
         p1, p2 = _gather_rows(p1, ordv), _gather_rows(p2, ordv)
         table = _gather_rows(table, ordv)
-    return table, p1, p2, ordv, overflow
+    return table, p1, p2, ordv, overflow, n_vis
 
 
 def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
@@ -653,10 +655,13 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
     # more visible rows overflow (W0).
     SD_full = SD
     SV = visible_segs(cfg, SD_full)
-    table, p1, p2, ordv, overflow = walk_table(
+    table, p1, p2, ordv, overflow, n_vis = walk_table(
         pt, lights_f, objoff, time, right, fwd, o, p00, pcfg.near, pcfg.far,
         SV if 0 < SV < SD_full else 0, float(scene.flats_atlas.shape[1]),
         float(scene.walls_atlas_index.shape[1]), bool(active_segs))
+    if n_vis is not None:  # the cull ran: so far the overflow is its alone
+        trace.count("cull_overflow_envs", overflow)
+        trace.count("visible_rows", n_vis)
     SD = table.shape[1]
 
     # --- crossings, the K nearest per column and the clip window (W1).
@@ -698,7 +703,10 @@ def walk(pt, scene, cfg, width, height, n_cross, state, active_segs: int = 0):
         # Each cell's move of its texel bases into the env's active table.
         shift = (slot_start - pt["cell_gseg0"][None, :]) * 128.0
 
-    sel = select_rows(idx_flat, table) if use_sel else None  # (B, C, K * W)
+    sel = None
+    if use_sel:
+        with trace.span("select"):
+            sel = select_rows(idx_flat, table)  # (B, C, K * W)
     records, words, overflow = walk_records(
         t, uf, idx, live, top, bot, mask, overflow, None if use_sel else table,
         pt["alpha_words"], cyw, row_shear, p11, H, kc, shift, sel)

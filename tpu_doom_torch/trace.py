@@ -10,7 +10,7 @@ one an untraced program captures.
     trace.enable()        # the card if there is one; calibrates its clock
     ...                   # DoomSim.rollout, LevelBank ticks, ...
     rec = trace.spans()   # synchronises once; the spans since the last read
-    trace.counts()        # {"overflow_envs": n, "migrated_envs": n}
+    trace.counts()        # {"overflow_envs": n, "migrated_envs": n, ...}
     trace.disable()
 
 On the card each span's start and end is a one-thread kernel
@@ -44,13 +44,20 @@ opens it. The spans of the main path:
                            sweeps and player math, the plain triggers)
       migrate              LevelBank.step_with_exits after the step
       render               render_dispatch; a bank's per level
-        walk, raster, fallback
+        walk               W0, W1 and W2 (render/portal.py:walk)
+          select           kernel B4 (csrc/select_rows.cu): every attribute
+                           column at every crossing, on big levels without
+                           crossing compaction only
+        raster, fallback
       frames               a bank's stack of its levels' frames
     frames                 TickGraphs.run's copy of a rendered frame out
 
 Counters (`count`) add on the device, with no sync: `overflow_envs`, the
-envs sent to the triangle fallback, and `migrated_envs`, the envs that
-changed level. A device's counters are made by `enable()` or `counter()`
+envs sent to the triangle fallback; `migrated_envs`, the envs that
+changed level; and, counted only where W0's visible-row cull runs (big
+levels), `cull_overflow_envs`, the envs over the visible-row budget, sent
+to the fallback by the cull, and `visible_rows`, W0's visible rows summed
+over the envs. A device's counters are made by `enable()` or `counter()`
 and from then on count in every tick run or captured on it, traced or
 not, so that a caller that times untraced graphs can read them too
 (`counter()`); before they are made, `count` adds nothing to a graph.
@@ -71,7 +78,7 @@ RING_TICKS = 4096  # ticks the ring of a session begun by enable() keeps between
 SLOTS = 512  # slots of a tick's row: a start and an end for each of 256 span paths
 CALIBRATION_LAUNCHES = 64
 RESOLUTION_STEPS = 256
-COUNTERS = ("overflow_envs", "migrated_envs")
+COUNTERS = ("overflow_envs", "migrated_envs", "cull_overflow_envs", "visible_rows")
 HOST = "host."  # the prefix of host spans' names
 
 _session = None  # the tracing session under way, or None
