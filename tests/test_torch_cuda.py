@@ -525,6 +525,60 @@ def test_render_portal_fused_shapes_on_card(cuda_device, wad, width, height, ext
     assert float(gc.float().mean()) > 0.5
 
 
+def _a_winner_a_row(args, kw, height):
+    """B2's records rebuilt, in the even envs, so that record r < min(R,
+    H) covers row (r + column) % H alone, with the classified channels of
+    that row's pixel: each of a column's rows won by another record (or,
+    past R, by none), so that B2 loads a record at every row."""
+    from tpu_doom_torch._numerics import f32
+    from tpu_doom_torch.ops.raster import _classify, _ndc_rows
+
+    src, words, cam, hc = args[:4]
+    W = src.shape[3]
+    y, ndc0 = _ndc_rows(height, src.device)
+    ch = _classify(src, words, cam[:, 1, None, None], hc, ndc0 + kw["shear"][:, None, None],
+                   y, f32(args[12]), done_on_kind=False)  # (B, 11, H, W)
+    records = src.clone()
+    cols = torch.arange(W, device=src.device)
+    for r in range(min(src.shape[1], height)):
+        rows = (r + cols) % height
+        records[::2, r, 2:13] = ch[::2, :, rows, cols]
+        records[::2, r, 0] = rows.float()
+        records[::2, r, 1] = rows.float() + 1.0
+    return records
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wad, extra, R", [
+    (":test:", {}, 40),
+    (":texstress:10x16", dict(portal_global_segs_max=1024, portal_crossings=8), 40),
+    (":texstress:10x16", {}, 120),
+    (":texstress:10x16", dict(portal_global_segs_max=1024), 120),
+], ids=["test_rows", "texstress_rows_per_env", "texstress_rows_r120",
+        "texstress_rows_r120_per_env"])
+def test_render_portal_fused_a_winner_a_row_on_card(cuda_device, wad, extra, R):
+    """On the card: B2 equal to its plain version where a column's winner
+    changes at every row (each of its 45 rows won by another record, or
+    by none past R, the masked ones where their alpha bit is set, in half
+    the envs), at R = 40 and 120, in both table modes."""
+    from tpu_doom_torch.ops import render_portal_fused, render_portal_fused_ref
+    from tpu_doom_torch.render.portal import fused_inputs
+
+    width, height = 72, 45
+    sim = TorchSim(GameConfig(wad_file=wad, width=width, height=height, batch_size=4,
+                              raster_backend="portal", **extra), cuda_device)
+    s = sim.reset()
+    s = s._replace(yaw=torch.tensor([0.0, 1.5, 3.0, 4.5], device=cuda_device),
+                   pitch=torch.tensor([0.0, 0.3, 0.0, -0.2], device=cuda_device))
+    args, kw, _ = fused_inputs(sim.portal_scene(), sim.scene, sim.config, width, height, s)
+    assert args[0].shape[1] == R and (args[8].dim() == 3) == bool(extra)
+    args = (_a_winner_a_row(args, kw, height), *args[1:])
+    gi, gc = render_portal_fused(*args, **kw)
+    wi, wc = render_portal_fused_ref(*args, **kw)
+    assert torch.equal(gi, wi) and torch.equal(gc, wc)
+    assert float(gc.float().mean()) > 0.5
+
+
 @pytest.mark.cuda
 def test_render_portal_fused_entry_shape_on_card(cuda_device):
     """On the card: B2 equal to its plain version at entry()'s shape (2

@@ -145,7 +145,8 @@ __device__ __forceinline__ bool reads_texel(float kind) {
 // version's two `torch.where` arms, and the distance term is the decor's
 // or the others', so skipping the arm it does not take changes no bit.
 // A wall's texel column and colormap row do not depend on the image row,
-// so B2 computes them once per record and column (WallTerms).
+// so B2 computes them once per record and column (WallTerms, in its
+// ShadeRec, render_portal.cu).
 
 __device__ __forceinline__ bool wall_like(float kind) {
   return kind == 2.0f || kind == 4.0f;
@@ -166,13 +167,20 @@ __device__ __forceinline__ int light_row(float light, float w_pix,
   return min(max(crow, 0), n_rows - 1);
 }
 
-// The texel's address from its texel column lx and texture coordinate vv.
+// The texel's address from its texel column lx and texture coordinate vv,
+// given the record's texel base cbase, its texture width + 1 tsx1 and its
+// texture height ts_y (1 where the channel is 0).
+__device__ __forceinline__ int texel_lin_of(float cbase, float tsx1, float ts_y,
+                                            float lx, float vv, int S1) {
+  const float ly = floorf(jmod(vv, ts_y));
+  const int lin = f2i(cbase + ly * tsx1 + lx);
+  return min(max(lin, 0), S1 * 128 - 1);
+}
+
 __device__ __forceinline__ int texel_lin(const float ch[kOutCh], float lx,
                                          float vv, int S1) {
-  const float ts_y = ch[3] == 0.0f ? 1.0f : ch[3];
-  const float ly = floorf(jmod(vv, ts_y));
-  const int lin = f2i(ch[4] + ly * (ch[2] + 1.0f) + lx);
-  return min(max(lin, 0), S1 * 128 - 1);
+  return texel_lin_of(ch[4], ch[2] + 1.0f, ch[3] == 0.0f ? 1.0f : ch[3], lx, vv,
+                      S1);
 }
 
 // What of a wall-kind pixel (wall_like(ch[0])) its row does not change.
@@ -188,7 +196,10 @@ __device__ __forceinline__ WallTerms wall_terms(const float ch[kOutCh],
                    light_row(ch[5], ch[6], ch[0] == 4.0f, n_rows)};
 }
 
-// A wall-kind pixel's address at the row of ndc_y.
+// A wall-kind pixel's address at the row of ndc_y. This and flat_address
+// have twins on B2's ShadeRec (render_portal.cu rec_wall_address and
+// rec_flat_address), the same operations with the row-free terms computed
+// once a record: change each pair together, or B2 and B8 part.
 __device__ __forceinline__ ShadeAddr wall_address(const float ch[kOutCh],
                                                   const WallTerms& t,
                                                   float ndc_y, float cam_y,

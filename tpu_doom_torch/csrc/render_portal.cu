@@ -19,19 +19,34 @@
 //     rows [lo, hi) it covers (portal_shade.cuh span_rows, exact), packed
 //     with the record's alpha-test flag in one word of shared memory, and
 //     the band's per-row ndc. So a record's bounds come from device memory
-//     once per band and column, not once per pixel.
+//     once per band and column, not once per pixel. Each thread issues
+//     the loads of kStageUnroll items, the band's sky rows, the strip's
+//     sky columns and the shear before it uses any.
 //  2. Each thread walks the records for its 12 rows at once: one shared
 //     load and a few integer operations give the mask of its pending rows
 //     a record covers; a masked-family record's alpha test (the only
 //     per-row float work of the walk) runs on those rows alone. The walk
-//     ends when the last of its rows has found its record.
-//  3. Each row is shaded in turn. A row whose record is the previous
-//     row's keeps its channels, and on a wall its texel column and
-//     colormap row, which do not depend on the row; a pixel reads and
-//     computes only what its kind uses (nothing covers: no channel but
-//     the kind; the sky: one texel of the sky texture; walls: the texture
-//     row; flats: the flat address and distance; portal_shade.cuh), and
-//     texel reads go through the read-only cache.
+//     ends when the last of its rows has found its record. A row's winner
+//     + 1 is kept in a byte, four rows a register.
+//  3. Each row is shaded in turn. At each change of a row's winner the
+//     column's 11 channels come from device memory and what no row of the
+//     record changes is computed once (ShadeRec: on a wall its texel
+//     column and colormap row, the selects of ts_y and dh, t2 - t1; on a
+//     flat p11 * (plane_h - cam_y) and the select of ts_x), kept in
+//     registers for the rows that follow. A pixel reads and computes only
+//     what its kind uses (nothing covers: no channel but the kind; the
+//     sky: one texel of the sky texture; walls: the texture row; flats:
+//     the flat address and distance; portal_shade.cuh); the texel, hole,
+//     colormap and sky reads go through the read-only cache. With the
+//     winners a byte a row and the raw channels dropped once the ShadeRec
+//     is made, the kernel fits 40 registers (kMinBlocks below) with 4
+//     bytes spilled; a loop that kept the raw channels took 51.
+//     A winner table in shared memory, every winning (record, column)'s
+//     ShadeRec filled once a band and read by each row it wins, ran 2-3 %
+//     slower than this loop on the H100: the loads it saves are L1 hits
+//     (PERF.md).
+// Shared memory: the spans, the band's ndc and sky rows, the strip's sky
+// columns, 4 x (32 R + 224) bytes: 5.9 KB at R = 40, 15.9 KB at R = 120.
 // The sky comes as coordinates, not as an image: the sky's texel
 // coordinates are separable, so the walk gives each column its texel
 // column sky_x[b, col] and each image row its texel row sky_y[b, row]
@@ -50,9 +65,10 @@
 // at a time, which keeps its stores coalesced and its lanes on rows of
 // one kind more often than a warp down a column would (that layout took
 // 1.19-1.22x as long on the H100; PERF.md). Twelve rows a thread share
-// each record test among more pixels, and five resident blocks of 256
-// threads per SM (kMinBlocks, which caps registers at 51) keep enough
-// warps in flight to hide the latency of the shade's divisions and loads.
+// each record test among more pixels, and six resident blocks of 256
+// threads per SM (kMinBlocks, which caps registers at 40; seven of 224
+// threads at 640x400) keep enough warps in flight to hide the latency of
+// the shade's divisions and loads.
 //
 // Two texel-table modes, as the TPU kernel's `per_env_tex` flag:
 //   global  (per_env = 0): one (S1, 128) int8 table of texel - 128 shared
@@ -84,7 +100,7 @@ using namespace portal;
 constexpr int kCols = 32;      // columns per block, one per lane
 constexpr int kMaxGroups = 8;  // row groups per block, one warp each
 constexpr int kRows = 12;      // contiguous rows per thread
-constexpr int kMinBlocks = 5;  // resident blocks per SM: <= 51 registers
+constexpr int kMinBlocks = 6;  // resident blocks per SM: <= 40 registers
 constexpr int kBandMax = kMaxGroups * kRows;  // rows of a band at most
 constexpr int kStaticSmem = 48 * 1024;
 
@@ -102,6 +118,143 @@ constexpr int kNoHole = 8;       // no holes
 constexpr int kNoCmap = 16;      // v2 = v1
 constexpr int kNoShadeMath = 32; // lin = trunc(cbase), crow = trunc(light), clamped
 constexpr int kNoLookups = kNoTex | kNoHole | kNoCmap;
+
+constexpr int kStageUnroll = 2;  // span items a thread loads before using any
+
+// What the shade of a textured pixel reads of its record, with the terms
+// that no row changes computed once (each the plain version's operation):
+// kind, the texel base ch[4], ch[2] + 1 and the select of ts_y; on a wall
+// kind (wall_like) a = w, b = t1, c = t2 - t1, the wall's low, the select
+// of dh, its texel column lx and colormap row crow (wall_terms); on the
+// flats a = p11 * (plane_h - cam_y), b = the select of ts_x, c = light. The
+// stage budget's no_shade_math variant takes the flats' layout for every
+// kind (it reads cbase and light). B8 (shade_portal.cu) computes the same
+// per pixel with portal_shade.cuh's shade_address, which runs faster there
+// than through a ShadeRec (7-10 %, chip_smoke).
+struct ShadeRec {
+  float kind, cbase, tsx1, ts_y, a, b, c, low, dh, lx;
+  int crow;
+};
+
+template <int kAblate>
+__device__ __forceinline__ ShadeRec shade_rec(const float ch[kOutCh], float cam_y,
+                                              float p11, int n_rows) {
+  ShadeRec s;
+  s.kind = ch[0];
+  s.cbase = ch[4];
+  s.tsx1 = ch[2] + 1.0f;
+  s.ts_y = ch[3] == 0.0f ? 1.0f : ch[3];
+  s.low = 0.0f;
+  s.dh = 0.0f;
+  s.lx = 0.0f;
+  s.crow = 0;
+  if (!(kAblate & kNoShadeMath) && wall_like(ch[0])) {
+    const WallTerms t = wall_terms(ch, n_rows);
+    const float dh = ch[10] - ch[9];
+    s.a = ch[6];
+    s.b = ch[7];
+    s.c = ch[8] - ch[7];
+    s.low = ch[9];
+    s.dh = dh == 0.0f ? 1.0f : dh;
+    s.lx = t.lx;
+    s.crow = t.crow;
+  } else {
+    s.a = p11 * (ch[1] - cam_y);
+    s.b = ch[2] == 0.0f ? 1.0f : ch[2];
+    s.c = ch[5];
+  }
+  return s;
+}
+
+// portal_shade.cuh's wall_address and flat_address on a ShadeRec: the
+// same operations, those of the row alone left (change each pair
+// together).
+__device__ __forceinline__ ShadeAddr rec_wall_address(const ShadeRec& s,
+                                                      float ndc_y, float cam_y,
+                                                      float p11, int S1) {
+  const float h_at = cam_y + ndc_y * s.a / p11;
+  const float vv = s.b + s.c * (h_at - s.low) / s.dh;
+  return ShadeAddr{texel_lin_of(s.cbase, s.tsx1, s.ts_y, s.lx, vv, S1), s.crow};
+}
+
+__device__ __forceinline__ ShadeAddr rec_flat_address(
+    const ShadeRec& s, float ndc_y, float dx, float dz, float cam_x, float cam_z,
+    int S1, int n_rows) {
+  const float safe_ndc = fabsf(ndc_y) < 1e-9f ? 1e-9f : ndc_y;
+  const float t_flat = s.a / safe_ndc;
+  const float uu = -(cam_x + dx * t_flat) * 100.0f;
+  const float vv = -(cam_z + dz * t_flat) * 100.0f;
+  const float lx = floorf(jmod(uu, s.b));
+  return ShadeAddr{texel_lin_of(s.cbase, s.tsx1, s.ts_y, lx, vv, S1),
+                   light_row(s.c, t_flat, false, n_rows)};
+}
+
+// What a pixel's shade needs beside its record's terms.
+struct PixelCtx {
+  int b, H, W, col, row0, lane_col;
+  float cam_x, cam_y, cam_z, dx, dz, p11;
+  int S1, n_rows, holeless, per_env, tex_stride, zero;
+};
+
+// Shade the pixel of image row `row` and the context's column, whose
+// record's terms are `sr`.
+template <int kAblate>
+__device__ __forceinline__ void shade_pixel(
+    const PixelCtx& px, int row, const ShadeRec& sr,
+    const float* s_ndc, const int* s_sky, const int* s_sky_col,
+    const uint8_t* __restrict__ sky_tex, const void* __restrict__ tex,
+    const int8_t* __restrict__ hole, const int8_t* __restrict__ cmap,
+    uint8_t* __restrict__ out_idx, uint8_t* __restrict__ out_cov) {
+  const size_t o = ((size_t)px.b * px.H + row) * px.W + px.col;
+  if (!(kAblate & kNoClassify) && !reads_texel(sr.kind)) {
+    // Nothing covers (kind 0): 0 and not covered; the sky: its texel.
+    const bool is_sky = sr.kind != 0.0f;
+    out_idx[o] = is_sky ? __ldg(sky_tex + s_sky[row - px.row0] + s_sky_col[px.lane_col]) : 0;
+    out_cov[o] = is_sky;
+    return;
+  }
+  const float ndc_y = s_ndc[row - px.row0];
+  const int S1 = px.S1, n_rows = px.n_rows, zero = px.zero;
+  ShadeAddr a;
+  if constexpr (kAblate & kNoShadeMath) {
+    a = ShadeAddr{min(max(f2i(sr.cbase), 0), S1 * 128 - 1),
+                  min(max(f2i(sr.c), 0), n_rows - 1)};
+  } else if (wall_like(sr.kind)) {
+    a = rec_wall_address(sr, ndc_y, px.cam_y, px.p11, S1);
+  } else {
+    a = rec_flat_address(sr, ndc_y, px.dx, px.dz, px.cam_x, px.cam_z, S1, n_rows);
+  }
+  int v1;
+  bool is_hole;
+  if (px.per_env) {
+    const int16_t* tb = (const int16_t*)tex + (size_t)px.b * px.tex_stride;
+    const int v = (int)__ldg(tb + a.lin);
+    is_hole = v == 256;
+    v1 = min(v, 255);
+  } else if constexpr (!(kAblate & (kNoTex | kNoHole))) {
+    v1 = global_texel((const int8_t*)tex, hole, px.holeless, a.lin, &is_hole);
+  } else {
+    is_hole = false;
+    if (!(kAblate & kNoHole) && !px.holeless) {
+      const int hbyte = (int)__ldg(hole + (a.lin >> 3)) + 128;
+      is_hole = ((hbyte >> (a.lin & 7)) & 1) == 1;
+    }
+    v1 = (kAblate & kNoTex) ? 128 + a.lin * zero
+                            : (int)__ldg((const int8_t*)tex + a.lin) + 128;
+  }
+  const float v2 = (kAblate & kNoCmap) ? (float)(v1 + a.crow * zero)
+                                       : colormapped(a, v1, cmap);
+  if constexpr (kAblate & kNoClassify) {
+    // Kind 0 everywhere: the plain version's (0, 0), which v2 and the
+    // hole flag reach through `zero` so that nvcc keeps their work.
+    out_idx[o] = (uint8_t)(int)(v2 * (float)zero);
+    out_cov[o] = ((int)is_hole * zero) != 0;
+  } else {
+    // v2 is a palette index, 0..255: the u8 store is exact.
+    out_idx[o] = is_hole ? 0 : (uint8_t)(int)v2;
+    out_cov[o] = !is_hole;
+  }
+}
 
 template <int kAblate>
 __global__ void __launch_bounds__(kCols * kMaxGroups, kMinBlocks)
@@ -133,48 +286,65 @@ render_portal_kernel(
   const float* rec_env = records + (size_t)b * R * kNch * W;
 
   // --- 1. stage the strip's spans, the band's ndc and sky rows ----------
-  for (int i = tid; i < R * kCols; i += n_threads) {
-    const int r = i / kCols;
-    const int col = col0 + i % kCols;
-    uint32_t span = 0;  // rows [0, 0): none
-    if (!(kAblate & kNoClassify) && col < W) {
-      const float* rec = rec_env + (size_t)r * kNch * W + col;
-      int lo, hi;
-      span_rows(rec[0], rec[W], H, &lo, &hi);
-      span = (uint32_t)lo | ((uint32_t)hi << kRowBits);
-      if (!(kAblate & kNoAlpha) && alpha_tested(rec, W, r)) span |= kAlphaFlag;
-    }
-    s_span[i] = span;
-  }
+  // The band's sky rows, the strip's sky columns (a band has fewer rows,
+  // and a strip fewer columns, than the block threads) and the shear are
+  // loaded with the spans.
   const float shear_b = shear[b];
-  for (int i = tid; i < band; i += n_threads) {
-    const float y = (float)(row0 + i) + 0.5f;
-    s_ndc[i] = 1.0f - 2.0f * y / (float)H + shear_b;
+  const int sky_row = tid < band && row0 + tid < H ? sky_y[(size_t)b * H + row0 + tid] : 0;
+  const int sky_col = tid < kCols && col0 + tid < W ? sky_x[(size_t)b * W + col0 + tid] : 0;
+  for (int i0 = tid; i0 < R * kCols; i0 += kStageUnroll * n_threads) {
+    float y0[kStageUnroll], y1[kStageUnroll], masked[kStageUnroll];
+#pragma unroll
+    for (int u = 0; u < kStageUnroll; ++u) {
+      const int i = i0 + u * n_threads;
+      const int r = i / kCols;
+      const int col = col0 + i % kCols;
+      y0[u] = y1[u] = masked[u] = 0.0f;
+      if (!(kAblate & kNoClassify) && i < R * kCols && col < W) {
+        const float* rec = rec_env + (size_t)r * kNch * W + col;
+        y0[u] = rec[0];
+        y1[u] = rec[W];
+        // portal_shade.cuh alpha_tested: the masked flag of a masked-family record.
+        if (!(kAblate & kNoAlpha) && r % kRpc == kMasked) masked[u] = rec[13 * W];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStageUnroll; ++u) {
+      const int i = i0 + u * n_threads;
+      if (i >= R * kCols) break;
+      uint32_t span = 0;  // rows [0, 0): none
+      if (!(kAblate & kNoClassify) && col0 + i % kCols < W) {
+        int lo, hi;
+        span_rows(y0[u], y1[u], H, &lo, &hi);
+        span = (uint32_t)lo | ((uint32_t)hi << kRowBits);
+        if (masked[u] > 0.5f) span |= kAlphaFlag;
+      }
+      s_span[i] = span;
+    }
+  }
+  if (tid < band) {
+    const float y = (float)(row0 + tid) + 0.5f;
+    s_ndc[tid] = 1.0f - 2.0f * y / (float)H + shear_b;
     // The sky texture's row offset of each band row (clamped: a row past
     // H is never read).
-    const int sy = row0 + i < H ? sky_y[(size_t)b * H + row0 + i] : 0;
-    s_sky[i] = min(max(sy, 0), hs - 1) * ws;
+    s_sky[tid] = min(max(sky_row, 0), hs - 1) * ws;
   }
-  for (int i = tid; i < kCols; i += n_threads) {
-    const int sx = col0 + i < W ? sky_x[(size_t)b * W + col0 + i] : 0;
-    s_sky_col[i] = min(max(sx, 0), ws - 1);
-  }
+  if (tid < kCols) s_sky_col[tid] = min(max(sky_col, 0), ws - 1);
   __syncthreads();
 
   const int lane_col = threadIdx.x;
   const int col = col0 + lane_col;
   const int rbase = row0 + threadIdx.y * kRows;
   const int n_mine = col < W ? min(max(H - rbase, 0), kRows) : 0;
-  if (n_mine == 0) return;
   const float cam_x = cam[b * 3 + 0];
   const float cam_y = cam[b * 3 + 1];
   const float cam_z = cam[b * 3 + 2];
   rec_env += col;
 
   // --- 2. classify: the first record covering each of my rows ------------
-  int win[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) win[i] = -1;
+  // The winners packed a byte a row (record + 1; 0: none), rows 4j..4j+3
+  // in win[j].
+  uint32_t win[kRows / 4] = {0u, 0u, 0u};
   if constexpr (!(kAblate & kNoClassify)) {
     const int32_t* words_env = words + (size_t)b * (R / kRpc) * n_words * W + col;
     uint32_t pending = (1u << n_mine) - 1u;
@@ -195,12 +365,16 @@ render_portal_kernel(
             hit &= ~(1u << i);
         }
       }
+      // Byte q of win[j] takes r + 1 where bit 4j + q of hit is set.
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        if ((hit >> i) & 1u) win[i] = r;
+      for (int j = 0; j < kRows / 4; ++j) {
+        const uint32_t bytes = (((hit >> (4 * j)) & 0xfu) * 0x00204081u) & 0x01010101u;
+        win[j] |= (uint32_t)(r + 1) * bytes;
+      }
       pending &= ~hit;
     }
   }
+  if (n_mine == 0) return;
 
   // --- 3. shade my rows in turn ------------------------------------------
   float dx = 0.0f, dz = 0.0f;
@@ -208,80 +382,40 @@ render_portal_kernel(
     dx = dxz[((size_t)b * 2 + 0) * W + col];
     dz = dxz[((size_t)b * 2 + 1) * W + col];
   }
-  float ch[kOutCh];
-  WallTerms wt{0.0f, 0};  // ch's, when it is a wall kind
-  int cur = -2;           // the record whose kind ch[0] holds
-  bool loaded = false;    // and ch[1..10] and wt too
+  const PixelCtx px{b, H, W, col, row0, lane_col, cam_x, cam_y, cam_z, dx, dz, p11,
+                    S1, n_rows, holeless, per_env, tex_stride, zero};
+  // At each change of winner, its channels from device memory and its
+  // ShadeRec computed, kept for the rows that follow.
+  ShadeRec sr;
+  sr.kind = 0.0f;
+  int cur = -2;         // the record whose kind sr.kind holds
+  bool loaded = false;  // and the rest of sr too
 #pragma unroll 1
   for (int i = 0; i < n_mine; ++i) {
-    const int w = win[0];
-#pragma unroll
-    for (int j = 0; j + 1 < kRows; ++j) win[j] = win[j + 1];
+    const int w = (int)(win[0] & 0xffu) - 1;
+    win[0] = (win[0] >> 8) | (win[1] << 24);
+    win[1] = (win[1] >> 8) | (win[2] << 24);
+    win[2] >>= 8;
     const float* rec = rec_env + (size_t)max(w, 0) * kNch * W;
     if (w != cur) {
       cur = w;
       loaded = false;
-      ch[0] = w >= 0 ? rec[2 * W] : ((kAblate & kNoClassify) ? (float)zero : 0.0f);
+      sr.kind = w >= 0 ? rec[2 * W] : ((kAblate & kNoClassify) ? (float)zero : 0.0f);
     }
-    const int row = rbase + i;
-    const size_t o = ((size_t)b * H + row) * W + col;
     // With the walk switched off every pixel still takes the textured
     // path, on its zero channels, so that the variant removes the walk
     // and keeps the shade.
-    if (!(kAblate & kNoClassify) && !reads_texel(ch[0])) {
-      // Nothing covers (kind 0): 0 and not covered; the sky: its texel.
-      const bool is_sky = ch[0] != 0.0f;
-      out_idx[o] = is_sky ? __ldg(sky_tex + s_sky[row - row0] + s_sky_col[lane_col]) : 0;
-      out_cov[o] = is_sky;
-      continue;
-    }
-    if (!loaded) {
+    if (!loaded && ((kAblate & kNoClassify) || reads_texel(sr.kind))) {
+      float ch[kOutCh];
+      ch[0] = sr.kind;
 #pragma unroll
       for (int c = 1; c < kOutCh; ++c)
         ch[c] = (kAblate & kNoClassify) ? (float)zero : rec[(2 + c) * W];
+      sr = shade_rec<kAblate>(ch, cam_y, p11, n_rows);
       loaded = true;
-      if (!(kAblate & kNoShadeMath) && wall_like(ch[0])) wt = wall_terms(ch, n_rows);
     }
-    ShadeAddr a;
-    if constexpr (kAblate & kNoShadeMath) {
-      a = ShadeAddr{min(max(f2i(ch[4]), 0), S1 * 128 - 1),
-                    min(max(f2i(ch[5]), 0), n_rows - 1)};
-    } else if (wall_like(ch[0])) {
-      a = wall_address(ch, wt, s_ndc[row - row0], cam_y, p11, S1);
-    } else {
-      a = flat_address(ch, s_ndc[row - row0], dx, dz, cam_x, cam_y, cam_z, p11,
-                       S1, n_rows);
-    }
-    int v1;
-    bool is_hole;
-    if (per_env) {
-      const int16_t* tb = (const int16_t*)tex + (size_t)b * tex_stride;
-      const int v = (int)__ldg(tb + a.lin);
-      is_hole = v == 256;
-      v1 = min(v, 255);
-    } else if constexpr (!(kAblate & (kNoTex | kNoHole))) {
-      v1 = global_texel((const int8_t*)tex, hole, holeless, a.lin, &is_hole);
-    } else {
-      is_hole = false;
-      if (!(kAblate & kNoHole) && !holeless) {
-        const int hbyte = (int)__ldg(hole + (a.lin >> 3)) + 128;
-        is_hole = ((hbyte >> (a.lin & 7)) & 1) == 1;
-      }
-      v1 = (kAblate & kNoTex) ? 128 + a.lin * zero
-                              : (int)__ldg((const int8_t*)tex + a.lin) + 128;
-    }
-    const float v2 = (kAblate & kNoCmap) ? (float)(v1 + a.crow * zero)
-                                         : colormapped(a, v1, cmap);
-    if constexpr (kAblate & kNoClassify) {
-      // Kind 0 everywhere: the plain version's (0, 0), which v2 and the
-      // hole flag reach through `zero` so that nvcc keeps their work.
-      out_idx[o] = (uint8_t)(int)(v2 * (float)zero);
-      out_cov[o] = ((int)is_hole * zero) != 0;
-    } else {
-      // v2 is a palette index, 0..255: the u8 store is exact.
-      out_idx[o] = is_hole ? 0 : (uint8_t)(int)v2;
-      out_cov[o] = !is_hole;
-    }
+    shade_pixel<kAblate>(px, rbase + i, sr, s_ndc, s_sky, s_sky_col, sky_tex, tex, hole,
+                         cmap, out_idx, out_cov);
   }
 }
 
@@ -293,7 +427,9 @@ int launch(const void* records, const void* words, const void* cam,
            int B, int R, int W, int H, int n_words, int hc, int hs, int ws,
            int S1, int holeless, int per_env, int tex_stride, float p11,
            int n_rows, int zero, void* stream) {
-  if (H < 1 || H > (int)kRowMask || hs < 1 || ws < 1) return (int)cudaErrorInvalidValue;
+  // The walk keeps a row's winner + 1 in a byte.
+  if (H < 1 || H > (int)kRowMask || hs < 1 || ws < 1 || R < 0 || R > 254)
+    return (int)cudaErrorInvalidValue;
   // Equal bands of whole row groups, at most kMaxGroups groups each.
   const int n_bands = (H + kBandMax - 1) / kBandMax;
   const int groups = ((H + n_bands - 1) / n_bands + kRows - 1) / kRows;
@@ -318,8 +454,7 @@ int launch(const void* records, const void* words, const void* cam,
       (const float*)shear, (const float*)dxz, (const int32_t*)sky_x,
       (const int32_t*)sky_y, (const uint8_t*)sky_tex, tex, (const int8_t*)hole,
       (const int8_t*)cmap, (uint8_t*)out_idx, (uint8_t*)out_cov, R, W, H,
-      n_words, hc, hs, ws, S1, holeless, per_env, tex_stride, p11, n_rows,
-      zero);
+      n_words, hc, hs, ws, S1, holeless, per_env, tex_stride, p11, n_rows, zero);
   return (int)cudaGetLastError();
 }
 
