@@ -180,24 +180,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
        frames; env*frames/s and device ms per replay of both, in turns,
        and the all-gather's device us per call (numbers to record).
      A rank that fails, or prints no OK line, fails the run.
-  9. tools (tpu_doom_torch.tools: perfcmp, stagebudget, fallbackrate),
-     each a segment with its launch counts (perfcmp's and stagebudget's
-     summed over their runs' timed replays), then the phase's seconds:
+  9. tools (tpu_doom_torch.tools: perfcmp, stagebudget), each a segment
+     with its launch counts (summed over their runs' timed replays), then
+     the card's walk against the plain walk, then the phase's seconds:
      tools_perfcmp: run_one at :test: 256 x 320x200 (best of 3 windows of
        8 replays) at the defaults and with portal_compact_crossings=4;
      tools_stagebudget: full, step, render and walk at the same point,
        each its own captured tick; the full stage's checksum bitwise
        bench.time_ticks' over as many ticks from reset (outside the
        segment);
-     tools_fallbackrate: fallback_rate at its defaults (:texstress: x 64
-       envs, 32 ticks, 320x200), one line; then (outside the segment) the
-       tool's walk on the card for its first 4 ticks against the plain
-       walk on the CPU for 8 of the envs (4 that stay on the portal path
-       and 4 that overflow, where a tick has them), their states copied
-       there: overflow, records and words bitwise equal. Once at the
-       tool's defaults (B4 selects the records; no env overflows), once
-       with portal_visible_segs=208, where about half the envs overflow
-       from tick 1 on: that pass must compare both kinds.
+     check_rate_walk: the walk on the card (:texstress: x 64 envs at
+       320x200 through portal, clip_substeps=1, the bench's actions from
+       reset) for 4 ticks against the plain walk on the CPU for 8 of the
+       envs (4 that stay on the portal path and 4 that overflow, where a
+       tick has them), their states copied there: overflow, records and
+       words bitwise equal. Once at the defaults (B4 selects the records;
+       no env overflows), once with portal_visible_segs=208, where about
+       half the envs overflow from tick 1 on: that pass must compare both
+       kinds.
 The last two lines: the kernels' JSON summary (launches summed over the
 main-path segments, and per segment), then the device JSON.
 Imports neither JAX nor the JAX package: the GPU machine has neither.
@@ -250,7 +250,8 @@ PARALLEL_REPLAYS = 8  # phase 8: sharded bank replays held bitwise to unsharded 
 GATHER_CALLS = 32  # phase 8: timed calls of the bank's all-gather alone
 MEAN_METRIC_RTOL = 1e-6  # mean_metric against x.mean(): the order of the sums
 TOOL_TICKS, TOOL_REPS = 8, 3  # phase 9: replays per window, windows
-FALLBACK_CHECK_TICKS, FALLBACK_CHECK_ENVS = 4, 8  # phase 9: fallbackrate vs the plain walk
+FALLBACK_CHECK_TICKS, FALLBACK_CHECK_ENVS = 4, 8  # phase 9: the card's walk vs the plain walk
+FALLBACK_CHECK_BATCH = 64  # phase 9: :texstress: envs the card walks
 FALLBACK_CHECK_VISIBLE_SEGS = 208  # phase 9: a budget that ~half the :texstress: envs overflow
 
 KERNELS = {
@@ -2750,34 +2751,42 @@ def phase_parallel():
 
 
 def check_rate_walk(sim, plain, label):
-    """fallbackrate's walk on the card over its first FALLBACK_CHECK_TICKS
-    ticks, each held bitwise (overflow, records, words) to the plain walk
-    on the CPU for FALLBACK_CHECK_ENVS of the envs: half that stay on the
-    portal path, half that overflow, where the tick has both. `plain` is
-    the level's (portal scene, scene) on the CPU. Returns the set of
-    overflow values compared."""
+    """The walk on the card over FALLBACK_CHECK_TICKS ticks from reset
+    with the bench's actions, each tick held bitwise (overflow, records,
+    words) to the plain walk on the CPU for FALLBACK_CHECK_ENVS of the
+    envs: half that stay on the portal path, half that overflow, where
+    the tick has both. `plain` is the level's (portal scene, scene) on
+    the CPU. Returns the set of overflow values compared."""
+    from tpu_doom_torch.render.portal import active_segs, walk
     from tpu_doom_torch.sim.state import SimState
-    from tpu_doom_torch.tools import fallbackrate as FR
+
+    cfg = sim.config
+
+    def walk_of(pscene, scene, state):
+        records, words, aux = walk(pscene, scene, cfg, W_MAIN, H_MAIN,
+                                   int(cfg.portal_crossings), state,
+                                   active_segs=active_segs(pscene, cfg))
+        return records, words, aux["overflow"]
 
     half, kinds = FALLBACK_CHECK_ENVS // 2, set()
-    for t, (state, _) in enumerate(FR.overflow_ticks(sim, FALLBACK_CHECK_TICKS,
-                                                     W_MAIN, H_MAIN)):
-        card = FR.rate_walk(sim.portal_scene(), sim.scene, sim.config, W_MAIN, H_MAIN, state)
+    acts, state = bench_actions(sim, cfg.batch_size), sim.reset(cfg.batch_size)
+    for t in range(FALLBACK_CHECK_TICKS):
+        card = walk_of(sim.portal_scene(), sim.scene, state)
         order = torch.argsort(card[2].to(torch.uint8), stable=True)
         envs = torch.cat([order[:half], order[-half:]])
         card = [x[envs].cpu() for x in card]
-        want = FR.rate_walk(*plain, sim.config, W_MAIN, H_MAIN,
-                            SimState(*(x[envs].cpu() for x in state)))
+        want = walk_of(*plain, SimState(*(x[envs].cpu() for x in state)))
         same = [torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
                             b.view(torch.int32) if b.is_floating_point() else b)
                 for a, b in zip(card, want)]
         err = float((card[0] - want[0]).abs().nan_to_num(0.0).max())
         kinds |= set(card[2].tolist())
-        print(f"[tools_fallbackrate] {label} tick {t}: envs {envs.tolist()} overflow on the"
+        print(f"[check_rate_walk] {label} tick {t}: envs {envs.tolist()} overflow on the"
               f" card {card[2].int().tolist()}, plain walk on the CPU {want[2].int().tolist()};"
               f" records, words bitwise {same[0]}, {same[1]} (records max_abs_err {err})")
-        require(all(same), f"fallbackrate {label} tick {t}: the card's walk differs from"
+        require(all(same), f"check_rate_walk {label} tick {t}: the card's walk differs from"
                            " the plain walk's (overflow, records, words bitwise)")
+        state = sim.step(state, acts)
     return kinds
 
 
@@ -2786,17 +2795,16 @@ def phase_perf_tools():
     {segment: launch counts}. perfcmp and stagebudget at :test: 256 x
     320x200, best of TOOL_REPS windows of TOOL_TICKS replays; the full
     stage's checksum held bitwise to bench.time_ticks' over as many ticks
-    from reset; fallbackrate at its defaults, then its walk on the card
-    for FALLBACK_CHECK_TICKS ticks held bitwise to the plain walk on the
-    CPU for FALLBACK_CHECK_ENVS of the envs, their states copied there
-    (`check_rate_walk`), at the defaults and under a visible-seg budget
-    that makes envs overflow."""
+    from reset; then the walk on the card for FALLBACK_CHECK_TICKS ticks
+    held bitwise to the plain walk on the CPU for FALLBACK_CHECK_ENVS of
+    the envs, their states copied there (`check_rate_walk`), at the
+    defaults and under a visible-seg budget that makes envs overflow."""
     from tpu_doom_torch.bench import sim_tick, time_ticks
     from tpu_doom_torch.render.portal import portal_scene_from_table
     from tpu_doom_torch.sim.scene import scene_from_arrays
-    from tpu_doom_torch.tools import fallbackrate as FR
     from tpu_doom_torch.tools import perfcmp as PC
     from tpu_doom_torch.tools import stagebudget as SB
+    from tpu_doom_torch.utils.config import PlayerConfig
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -2843,13 +2851,8 @@ def phase_perf_tools():
             "stagebudget's full stage does not tick as the bench does")
     del sim, bench
 
-    with segment(segments, "tools_fallbackrate"):
-        t0 = time.perf_counter()
-        r = FR.fallback_rate(device="cuda")
-        print(f"[tools_fallbackrate] {json.dumps({k: r[k] for k in FR.JSON_KEYS})};"
-              f" overflowing envs per tick {r['overflow_per_tick']};"
-              f" {time.perf_counter() - t0:.1f} s")
-    sim = FR.rate_sim(r["wad"], r["envs"], W_MAIN, H_MAIN, "cuda")
+    sim = make_sim(wad_file=TEX_WAD, batch_size=FALLBACK_CHECK_BATCH,
+                   player=PlayerConfig(clip_substeps=1))
     plain = (portal_scene_from_table(sim.arrays.portal, sim.arrays, "cpu"),
              scene_from_arrays(sim.arrays, "cpu")[0])
     check_rate_walk(sim, plain, "defaults")
@@ -2857,13 +2860,10 @@ def phase_perf_tools():
                                      portal_visible_segs=FALLBACK_CHECK_VISIBLE_SEGS)
     kinds = check_rate_walk(sim, plain, f"portal_visible_segs={FALLBACK_CHECK_VISIBLE_SEGS}")
     require(kinds == {True, False},
-            f"fallbackrate: the budget pass compared overflow values {kinds}, not both")
+            f"check_rate_walk: the budget pass compared overflow values {kinds}, not both")
     del sim, plain
-    needed = {"tools_perfcmp": ("player_move", "render_portal_fused") + WALK,
-              "tools_stagebudget": ("player_move", "render_portal_fused") + WALK,
-              "tools_fallbackrate": ("player_move", "select_rows") + WALK}
-    for seg, names in needed.items():
-        for name in names:
+    for seg in ("tools_perfcmp", "tools_stagebudget"):
+        for name in ("player_move", "render_portal_fused") + WALK:
             require(segments[seg].get(name, 0) > 0, f"{seg}: {name} did not run")
     print(f"[tools] phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return segments

@@ -9,7 +9,7 @@ of JAX:
     `jax` nor any module of `tpu_doom`;
 (d) no import statement of the port's files names `jax` or `tpu_doom`;
 (f) no module of the port imports a root script (chip_smoke.py), and
-    tpu_doom_torch/tools/peelbench.py finds its fixtures from another
+    `tpu_doom_torch.tools.fixtures` finds its checkout from another
     directory.
 """
 
@@ -185,15 +185,21 @@ def test_package_imports_no_root_script():
     assert not bad, bad
 
 
-def test_peelbench_fixtures_load_outside_the_checkout(tmp_path):
-    """(f) tpu_doom_torch/tools/peelbench.py run from another directory
-    finds its checkout and builds both of its shapes (on the CPU here)."""
-    script = os.path.join(ROOT, "tpu_doom_torch", "tools", "peelbench.py")
-    code = ("import runpy\n"
-            f"m = runpy.run_path({script!r})\n"
-            "import sys; sys.path.insert(0, m['CHECKOUT'])\n"
-            "for name, (sim, s) in m['states']('cpu').items():\n"
-            "    print(name, tuple(s.pos.shape), sim.config.width, sim.config.height)\n")
+def test_fixtures_load_outside_the_checkout(tmp_path):
+    """(f) `tpu_doom_torch.tools.fixtures`, imported in an interpreter
+    whose working directory is elsewhere, finds its checkout and builds
+    the verify poses' state and the maze's pitched envs (on the CPU here):
+    chip_smoke.py and tools/profile_tick.py rely on it."""
+    code = (f"import sys; sys.path.insert(0, {ROOT!r})\n"
+            "from tpu_doom_torch.tools.fixtures import (fallback_sim, make_sim,\n"
+            "                                           verify_ref, verify_state)\n"
+            "vsim = make_sim('cpu', batch_size=8, portal_crossings=12,\n"
+            "                raster_backend='auto')\n"
+            "sim, state, _ = fallback_sim(device='cpu', wad_file=':texstress:')\n"
+            "n = state.pos.shape[0] // 2  # fallback_sim pitches the first half\n"
+            "for name, m, s in (('verify', vsim, verify_state(vsim, verify_ref())),\n"
+            "                   ('maze', sim, type(state)(*(x[:n] for x in state)))):\n"
+            "    print(name, tuple(s.pos.shape), m.config.width, m.config.height)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)

@@ -1,41 +1,29 @@
 """The port's timing tools (`tpu_doom_torch.tools.perfcmp`, `stagebudget`,
-`fallbackrate`, `measure_all`) against the JAX package's root tools they
-twin, loaded from their files under tools/, on the CPU (the kernels'
-plain versions; no time here is a device time).
+`measure_all`) against the JAX package's root tools they twin, loaded
+from their files under tools/, on the CPU (the kernels' plain versions;
+no time here is a device time).
 
 Tolerances: all exact.
 (a) `parse` equals tools/perfcmp.py's on a table of groups, results and
     SystemExit alike; the config a group gives equals the JAX tool's,
     field by field (the metadata path aside: the port's tools name the
     checkout's file by its absolute path).
-(b) `fallback_rate` on :stress:6, 2 envs, 74 ticks at the tools' fixed
-    320x200 equals tools/fallbackrate.py's run on the same settings: the
-    overflowing envs of every tick (read from the JAX tool's own per-tick
-    arrays) and the JSON line. Env 1 overflows at tick 73 (the walk's
-    crossing compaction, 8 on this small maze), every other env-tick
-    stays on the portal path, so the run holds both kinds; from reset,
-    :texstress:10x16 overflowed in none of 200 ticks of 16 envs at 64x40,
-    and this was the earliest overflow found on the maze fixtures.
-(c) `perfcmp.run_one` and each `stagebudget` stage at 2 envs x 64x40, 2
+(b) `perfcmp.run_one` and each `stagebudget` stage at 2 envs x 64x40, 2
     ticks: finite, positive; the `full` stage's checksum equals
     `bench.time_ticks`' over the same ticks from reset, bitwise.
-(d) `measure_all`: its first five rows are tools/measure_all.sh's `run`
+(c) `measure_all`: its first five rows are tools/measure_all.sh's `run`
     lines; a failing, silent or timed-out row makes it exit 1.
-(e) `abrun`'s command line: no set named runs every set, in SETS' order.
 """
 
 import dataclasses
-import json
 import math
 import os
 import subprocess
 
-import numpy as np
 import pytest
 import torch
 from test_torch_tools import _load_jax_tool
 
-from tpu_doom_torch.tools import fallbackrate as FR
 from tpu_doom_torch.tools import measure_all as MA
 from tpu_doom_torch.tools import perfcmp as PC
 from tpu_doom_torch.tools import stagebudget as SB
@@ -101,60 +89,7 @@ def test_config_split_matches_perfcmp(group, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# (b) fallbackrate
-# ---------------------------------------------------------------------------
-
-FALLBACK = dict(wad=":stress:6", batch=2, ticks=74)
-
-
-def test_fallback_rate_matches_fallbackrate(monkeypatch, capsys):
-    """(b) Per-tick overflow counts and the JSON line, exactly."""
-    mod = _load_jax_tool("fallbackrate")
-    arrays = []
-
-    class Recording:
-        """numpy, with every `asarray` result kept: the tool reads each
-        tick's overflow mask through np.asarray and nothing else."""
-
-        def __getattr__(self, name):
-            return getattr(np, name)
-
-        def asarray(self, x, *args, **kw):
-            arrays.append(np.asarray(x, *args, **kw))
-            return arrays[-1]
-
-    monkeypatch.setattr(mod, "np", Recording())
-    for k, v in (("BENCH_WAD", FALLBACK["wad"]), ("BENCH_BATCH", str(FALLBACK["batch"])),
-                 ("BENCH_TICKS", str(FALLBACK["ticks"]))):
-        monkeypatch.setenv(k, v)
-    mod.main()
-    want_line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    masks = np.stack(arrays)
-    assert masks.shape == (FALLBACK["ticks"], FALLBACK["batch"]) and masks.dtype == bool
-    assert masks.any() and not masks.all()  # both kinds of env-tick occur
-
-    got = FR.fallback_rate(**FALLBACK, device="cpu")
-    assert got["overflow_per_tick"] == masks.sum(axis=1).tolist()
-    assert {k: got[k] for k in FR.JSON_KEYS} == want_line
-    assert list(want_line) == list(FR.JSON_KEYS)
-
-
-def test_fallbackrate_main_prints_the_json_line(monkeypatch, capsys):
-    """(b) `main` on the CPU: one JSON line with the JAX tool's keys, the
-    per-tick counts on stderr."""
-    for k, v in (("BENCH_DEVICE", "cpu"), ("BENCH_WAD", ":test:"), ("BENCH_BATCH", "2"),
-                 ("BENCH_TICKS", "1")):
-        monkeypatch.setenv(k, v)
-    assert FR.main() == 0
-    out, err = capsys.readouterr()
-    line = json.loads(out.strip().splitlines()[-1])
-    assert line == {"wad": ":test:", "envs": 2, "ticks": 1, "fallback_rate": 0.0,
-                    "portal_rate": 1.0}
-    assert "overflowing envs per tick [0]" in err
-
-
-# ---------------------------------------------------------------------------
-# (c) perfcmp.run_one and the stages
+# (b) perfcmp.run_one and the stages
 # ---------------------------------------------------------------------------
 
 
@@ -165,7 +100,7 @@ def small_sim():
 
 @pytest.mark.parametrize("group", ["", "portal_compact_crossings=4,radius=0.2"])
 def test_run_one_on_cpu(group):
-    """(c) env*frames/s of the bench's tick, finite and positive; a shared
+    """(b) env*frames/s of the bench's tick, finite and positive; a shared
     sim runs each group under its own config."""
     sims = {}
     fps = PC.run_one(PC.parse(group) if group else {}, "cpu", sims, SMALL)
@@ -175,7 +110,7 @@ def test_run_one_on_cpu(group):
 
 
 def test_perfcmp_main_restores_the_environment(monkeypatch, capsys):
-    """(c) An ENV. group sets its variables for its run only: a variable
+    """(b) An ENV. group sets its variables for its run only: a variable
     that was set gets its value back, one that was not is removed."""
     for k, v in (("BENCH_DEVICE", "cpu"), ("BENCH_BATCH", "2"), ("BENCH_W", "64"),
                  ("BENCH_H", "40"), ("BENCH_TICKS", "2"), ("BENCH_CHUNK", "2"),
@@ -204,7 +139,7 @@ def test_perfcmp_main_restores_the_environment(monkeypatch, capsys):
 
 @pytest.mark.parametrize("stage", SB.STAGES)
 def test_stage_on_cpu(small_sim, stage):
-    """(c) Each stage's ms per tick is finite and positive and its
+    """(b) Each stage's ms per tick is finite and positive and its
     checksum non-zero."""
     ms, (state, check) = SB.run_stage(stage, small_sim, SMALL)
     assert math.isfinite(ms) and ms > 0
@@ -213,7 +148,7 @@ def test_stage_on_cpu(small_sim, stage):
 
 
 def test_full_stage_is_the_bench_tick(small_sim):
-    """(c) The full stage's checksum after its warm-up and windows is
+    """(b) The full stage's checksum after its warm-up and windows is
     bitwise the bench's `time_ticks` checksum over as many ticks from
     reset."""
     from tpu_doom_torch.bench import bench_actions, sim_tick, time_ticks
@@ -228,7 +163,7 @@ def test_full_stage_is_the_bench_tick(small_sim):
 
 
 def test_walk_checksum_reads_a_fixed_sample():
-    """(c) The walk stage's checksum reads WALK_SAMPLE elements spread over
+    """(b) The walk stage's checksum reads WALK_SAMPLE elements spread over
     each output, whatever its size, and refuses to copy a strided one."""
     one = 0x3F800000  # the bits of 1.0f
     for n in (SB.WALK_SAMPLE // 3, SB.WALK_SAMPLE, 10 * SB.WALK_SAMPLE + 3):
@@ -241,7 +176,7 @@ def test_walk_checksum_reads_a_fixed_sample():
 
 
 def test_stagebudget_main_and_unknown_stage(monkeypatch, capsys):
-    """(c) `main` prints the JAX tool's lines; `kernel`, named in the JAX
+    """(b) `main` prints the JAX tool's lines; `kernel`, named in the JAX
     tool's usage line but without a body there, exits with a message."""
     for k, v in (("BENCH_DEVICE", "cpu"), ("BENCH_BATCH", "2"), ("BENCH_W", "64"),
                  ("BENCH_H", "40"), ("BENCH_TICKS", "1"), ("BENCH_CHUNK", "1"),
@@ -258,7 +193,7 @@ def test_stagebudget_main_and_unknown_stage(monkeypatch, capsys):
 
 
 # ---------------------------------------------------------------------------
-# (d) measure_all
+# (c) measure_all
 # ---------------------------------------------------------------------------
 
 
@@ -274,22 +209,23 @@ def _shell_rows():
 
 
 def test_measure_all_rows_start_with_the_shell_rows():
-    """(d) The shell script's five bench rows, in order, then its
-    fallback rate and verify rows, then the three points it lacks."""
+    """(c) The shell script's five bench rows, in order, then its verify
+    row, then the three points it lacks (the script's fallback rate row
+    has no twin: the walk's overflow is the port's `overflow_envs`
+    counter)."""
     shell = _shell_rows()
     assert len(shell) == 5
     assert [env for env, _, _ in MA.ROWS[:5]] == shell
     assert all(args == MA.BENCH for _, args, _ in MA.ROWS[:5])
-    assert MA.ROWS[5][1] == ("tpu_doom_torch.tools.fallbackrate",)
-    assert MA.ROWS[6][1] == MA.BENCH + ("--verify",)
-    assert [env for env, _, _ in MA.ROWS[7:]] == [
+    assert MA.ROWS[5][1] == MA.BENCH + ("--verify",)
+    assert [env for env, _, _ in MA.ROWS[6:]] == [
         {"BENCH_WAD": ":texstress:", "BENCH_GLOBAL_MAX": "1024"},
         {"BENCH_BATCH": "1024"}, {"BENCH_BATCH": "4096"}]
 
 
 @pytest.mark.parametrize("fault", [None, "fails", "silent", "times_out"])
 def test_measure_all_exit_code(fault, monkeypatch, capsys):
-    """(d) Exit 0 when every row succeeds, else 1 with the row named; every
+    """(c) Exit 0 when every row succeeds, else 1 with the row named; every
     row runs, one at a time, with its own time limit; each row's report
     carries its checksum line from standard error."""
     calls = []
@@ -318,13 +254,3 @@ def test_measure_all_exit_code(fault, monkeypatch, capsys):
     else:
         assert rc == 1
         assert "1 row(s) failed: BENCH_LOOKY=1 python3 -m tpu_doom_torch.bench" in err
-
-
-def test_abrun_parse_defaults_to_every_set():
-    """(e) abrun with no set named runs all of them; named sets are kept."""
-    from tpu_doom_torch.tools import abrun
-
-    assert abrun.parse(["--other", "p", "--out", "o"]).sets == list(abrun.SETS)
-    assert abrun.parse(["--other", "p", "--out", "o", "profile"]).sets == ["profile"]
-    with pytest.raises(SystemExit):
-        abrun.parse(["--other", "p", "--out", "o", "nonsense"])

@@ -32,6 +32,10 @@ Cases (64x40, K = 24, crossing compaction at its AUTO 8 unless stated):
   from a seeded numpy generator (the animation, scroll and offset columns
   of the attribute table).
 
+Along the bench's trajectory (`:stress:6`, 2 envs, 74 ticks at 320x200)
+the envs whose walk overflows, tick by tick, equal those of `_walk_env`
+as the JAX package's root tool tools/fallbackrate.py evaluates them.
+
 The attribute table, the rows' endpoints and the visible-row cull (W0's
 plain version, `render/portal.py:walk_table_ref`) are held bitwise to
 the JAX walk's own: the subprocess records them as `_walk_env` builds
@@ -433,17 +437,66 @@ def test_explicit_compaction_overflow_formula(jax_walks):
     assert bool(want.any()) and not bool(want.all())
 
 
-def test_walkprof_stamps_every_phase_of_w1():
-    """tools/walkprof's clock-stamped copy of csrc/walk.cu finds each of
-    its anchors in W1 once (it refuses to build otherwise), and the tool
-    needs a card."""
-    from tpu_doom_torch.tools import walkprof
+# The bench trajectory of the overflow check: :stress:6 x 2 envs x 74
+# ticks at 320x200. Env 1 overflows at tick 73 (the walk's crossing
+# compaction, 8 on this small maze), every other env-tick stays on the
+# portal path, so the run holds both kinds; from reset, :texstress:10x16
+# overflowed in none of 200 ticks of 16 envs at 64x40, and this was the
+# earliest overflow found on the maze fixtures.
+TRAJECTORY = dict(wad=":stress:6", batch=2, ticks=74)
 
-    src = walkprof.stamped_source()
-    assert src.count("STAMP(") == len(walkprof.STAMPS) + 1  # the macro's own definition
-    assert 'extern "C" int tdt_walk_stamps' in src
-    if not torch.cuda.is_available():
-        assert walkprof.main([]) == 1
+
+def test_walk_overflow_matches_jax_over_the_bench_trajectory(monkeypatch):
+    """The envs whose walk overflows, tick by tick along the bench's
+    trajectory (`bench.bench_actions` from reset; portal, clip_substeps=1
+    at 320x200, the active set where the level needs it), equal those of
+    the JAX package's `_walk_env` as tools/fallbackrate.py evaluates them
+    over the same ticks: the JAX tool's per-tick masks are read as it
+    hands them to np.asarray."""
+    from test_torch_tools import _load_jax_tool
+
+    from tpu_doom_torch.bench import bench_actions
+    from tpu_doom_torch.models import DoomSim
+    from tpu_doom_torch.render.portal import active_segs, walk
+    from tpu_doom_torch.utils.config import GameConfig, PlayerConfig
+
+    wad, batch, ticks = TRAJECTORY["wad"], TRAJECTORY["batch"], TRAJECTORY["ticks"]
+    mod = _load_jax_tool("fallbackrate")
+    arrays = []
+
+    class Recording:
+        """numpy, with every `asarray` result kept: the tool reads each
+        tick's overflow mask through np.asarray and nothing else."""
+
+        def __getattr__(self, name):
+            return getattr(np, name)
+
+        def asarray(self, x, *args, **kw):
+            arrays.append(np.asarray(x, *args, **kw))
+            return arrays[-1]
+
+    monkeypatch.setattr(mod, "np", Recording())
+    for k, v in (("BENCH_WAD", wad), ("BENCH_BATCH", str(batch)), ("BENCH_TICKS", str(ticks))):
+        monkeypatch.setenv(k, v)
+    mod.main()
+    masks = np.stack(arrays)
+    assert masks.shape == (ticks, batch) and masks.dtype == bool
+    assert masks.any() and not masks.all()  # both kinds of env-tick occur
+
+    sim = DoomSim(GameConfig(wad_file=wad, width=320, height=200, batch_size=batch,
+                             raster_backend="portal",
+                             metadata_file=os.path.join(ROOT, "assets", "meta", "doom.toml"),
+                             player=PlayerConfig(clip_substeps=1)), "cpu")
+    cfg, pscene = sim.config, sim.portal_scene()
+    acts, state = bench_actions(sim, batch), sim.reset(batch)
+    got = []
+    with torch.no_grad():
+        for _ in range(ticks):
+            _, _, aux = walk(pscene, sim.scene, cfg, 320, 200, int(cfg.portal_crossings),
+                             state, active_segs=active_segs(pscene, cfg))
+            got.append(aux["overflow"].numpy())
+            state = sim.step(state, acts)
+    np.testing.assert_array_equal(np.stack(got), masks)  # every env, every tick
 
 
 if __name__ == "__main__":

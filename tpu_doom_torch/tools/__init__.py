@@ -13,9 +13,8 @@ the card is measured on (chip_smoke.py, tools/profile_tick.py).
 The twins of the root tools that time the JAX package, on the card
 unless BENCH_DEVICE=cpu, each timing the bench's tick captured as a CUDA
 graph: `perfcmp` (an A/B of the tick under GameConfig overrides),
-`stagebudget` (full / step / render / walk, each its own captured tick),
-`fallbackrate` (the share of envs whose walk overflows over the bench
-trajectory) and `measure_all` (every bench row, one process at a time).
+`stagebudget` (full / step / render / walk, each its own captured tick)
+and `measure_all` (every bench row, one process at a time).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """The sims, states and ticks the card is measured on, shared by
-chip_smoke.py, tools/profile_tick.py and `peelbench`:
+chip_smoke.py and tools/profile_tick.py:
 
 * `make_sim`: DoomSim on :test: at the main path's shape (256 envs at
   320x200 through portal, clip_substeps=4), any field overridden;

@@ -10,9 +10,11 @@ its standard output (a JSON line), the lines of its standard error that
 carry the frames' checksum (the bench rows': two checkouts that render
 the same frames on the same trajectory print the same), then its exit
 code and seconds. The
-first five rows are the shell script's bench rows, then its fallback rate
-and verify rows, then the three bench points of the benchmark's candidate
-cells that the script lacks. Exits 1, naming them, when any row fails,
+first five rows are the shell script's bench rows, then its verify row,
+then the three bench points of the benchmark's candidate cells that the
+script lacks. The script's fallback rate row has no twin: the port counts
+the envs that leave the portal path on the device (trace.py's
+`overflow_envs`). Exits 1, naming them, when any row fails,
 times out or prints nothing: a failed row is no measurement. On the card:
 every row asks for it, as the modules do.
 """
@@ -35,7 +37,6 @@ ROWS = (
     ({"BENCH_WAD": ":texstress:"}, BENCH, ROW_TIMEOUT),  # a maze's texel volume
     ({"BENCH_BANK": "1"}, BENCH, ROW_TIMEOUT),  # config 5: 4 x 1024 at 640x400
     ({"BENCH_BANK": "1", "BENCH_LEVELS": "8"}, BENCH, ROW_TIMEOUT),  # the L=8 bank
-    ({}, ("tpu_doom_torch.tools.fallbackrate",), ROW_TIMEOUT),  # texstress defaults
     ({}, BENCH + ("--verify",), 2 * ROW_TIMEOUT),  # every verify leg
     ({"BENCH_WAD": ":texstress:", "BENCH_GLOBAL_MAX": "1024"}, BENCH,
      ROW_TIMEOUT),  # the active set
