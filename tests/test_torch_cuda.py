@@ -492,15 +492,20 @@ GRATE_POS = [-3.5, 1.0, -9.0]  # a view of :test:'s masked grate
     (":texstress:10x16", 72, 45, {}, 120, False),
     (":texstress:10x16", 64, 40, dict(portal_global_segs_max=1024), 120, True),
     (":texstress:10x16", 72, 45, dict(portal_global_segs_max=1024), 120, True),
+    (":test:", 320, 200, {}, 40, False),  # the `synth` cells' shape: 3 bands
+    (":test:", 72, 250, {}, 40, False),   # 3 bands, the last ragged
+    (":test:", 64, 1100, {}, 40, False),  # rows staged twice: 960, then 140
 ])
 def test_render_portal_fused_shapes_on_card(cuda_device, wad, width, height, extra, R,
                                             per_env):
     """On the card: B2 (sky coordinates in, u8 / bool frames out) equal
     to its plain version in both table modes, at 64x40, at 72x45 (W not a
-    multiple of the 32-column strip, H not of the 8-row group) and at
-    config 5's 640x400 on MAP01, at R = 5, 40 and 120 records per column,
-    with masked records on :test: (one env at the grate), pitched envs and
-    sky pixels."""
+    multiple of the 32-column strip, H not of the 12-row group), at
+    config 5's 640x400 on MAP01 and at 320x200 (a block walks its strip's
+    5 and 3 bands), at 72x250 (a ragged last band) and at 64x1100 (the
+    rows' ndc and sky staged twice), at R = 5, 40 and 120 records per
+    column, with masked records on :test: (one env at the grate), pitched
+    envs and sky pixels."""
     from tpu_doom_torch.ops import render_portal_fused, render_portal_fused_ref
     from tpu_doom_torch.ops.raster import MASKED_FAMILY, RECORDS_PER_CROSSING
     from tpu_doom_torch.render.portal import fused_inputs
@@ -549,22 +554,28 @@ def _a_winner_a_row(args, kw, height):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wad, extra, R", [
-    (":test:", {}, 40),
-    (":texstress:10x16", dict(portal_global_segs_max=1024, portal_crossings=8), 40),
-    (":texstress:10x16", {}, 120),
-    (":texstress:10x16", dict(portal_global_segs_max=1024), 120),
+@pytest.mark.parametrize("wad, extra, R, height", [
+    (":test:", {}, 40, 45),
+    (":texstress:10x16", dict(portal_global_segs_max=1024, portal_crossings=8), 40, 45),
+    (":texstress:10x16", {}, 120, 45),
+    (":texstress:10x16", dict(portal_global_segs_max=1024), 120, 45),
+    (":test:", {}, 40, 96),
+    (":test:", {}, 40, 97),
+    (":texstress:10x16", {}, 120, 200),
 ], ids=["test_rows", "texstress_rows_per_env", "texstress_rows_r120",
-        "texstress_rows_r120_per_env"])
-def test_render_portal_fused_a_winner_a_row_on_card(cuda_device, wad, extra, R):
+        "texstress_rows_r120_per_env", "test_rows_h96", "test_rows_h97",
+        "texstress_rows_r120_h200"])
+def test_render_portal_fused_a_winner_a_row_on_card(cuda_device, wad, extra, R, height):
     """On the card: B2 equal to its plain version where a column's winner
-    changes at every row (each of its 45 rows won by another record, or
-    by none past R, the masked ones where their alpha bit is set, in half
-    the envs), at R = 40 and 120, in both table modes."""
+    changes at every row (each of its rows won by another record, or by
+    none past R, the masked ones where their alpha bit is set, in half the
+    envs), at R = 40 and 120, in both table modes, at 72 columns by 45
+    rows, by 96 (one band) and 97 (two), and by 200 with R = 120 (three
+    bands, the 120 records' rows in all three)."""
     from tpu_doom_torch.ops import render_portal_fused, render_portal_fused_ref
     from tpu_doom_torch.render.portal import fused_inputs
 
-    width, height = 72, 45
+    width = 72
     sim = TorchSim(GameConfig(wad_file=wad, width=width, height=height, batch_size=4,
                               raster_backend="portal", **extra), cuda_device)
     s = sim.reset()

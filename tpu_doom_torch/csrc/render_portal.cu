@@ -11,17 +11,23 @@
 // and its shade one record's channels. What costs is the walk, one test
 // per record until the first that covers, and the shade's arithmetic.
 //
-// Design: a block owns a strip of 32 columns of one env over a band of up
-// to 96 rows (H split into equal bands of whole 12-row groups), 32 x G
-// threads (G <= 8 row groups), each thread one column and 12 contiguous
-// rows of it.
+// Design: a block owns a strip of 32 columns of one env over the whole
+// height, 32 x G threads (G <= 8 row groups), each thread one column. H is
+// split into equal bands of whole 12-row groups, at most 96 rows each; the
+// block's G warps walk and shade the strip band after band, a thread 12
+// contiguous rows of a column in each.
 //  1. The block stages, once, every record's span over the strip as the
 //     rows [lo, hi) it covers (portal_shade.cuh span_rows, exact), packed
 //     with the record's alpha-test flag in one word of shared memory, and
-//     the band's per-row ndc. So a record's bounds come from device memory
-//     once per band and column, not once per pixel. Each thread issues
-//     the loads of kStageUnroll items, the band's sky rows, the strip's
-//     sky columns and the shear before it uses any.
+//     each row's ndc and sky row. So a record's bounds come from device
+//     memory once per strip and column, not once per pixel, and not once
+//     per band: a record's span does not depend on the band, and the
+//     strip's bands (5 at 640x400, 3 at 320x200) share one staging and
+//     one barrier. Each thread issues the loads of kStageUnroll items and
+//     the strip's sky columns before it uses any. The rows' ndc and sky
+//     rows cover up to kStagedRowsMax rows, whole bands; a taller image
+//     restages them for its next rows behind a barrier (the spans never).
+//     Where H <= 96 there is one band, which a block's warps walk once.
 //  2. Each thread walks the records for its 12 rows at once: one shared
 //     load and a few integer operations give the mask of its pending rows
 //     a record covers; a masked-family record's alpha test (the only
@@ -39,21 +45,25 @@
 //     the flat address and distance; portal_shade.cuh); the texel, hole,
 //     colormap and sky reads go through the read-only cache. With the
 //     winners a byte a row and the raw channels dropped once the ShadeRec
-//     is made, the kernel fits 40 registers (kMinBlocks below) with 4
+//     is made, the kernel fits 40 registers (kMinBlocks below) with 20
 //     bytes spilled; a loop that kept the raw channels took 51.
 //     A winner table in shared memory, every winning (record, column)'s
 //     ShadeRec filled once a band and read by each row it wins, ran 2-3 %
 //     slower than this loop on the H100: the loads it saves are L1 hits
 //     (PERF.md).
-// Shared memory: the spans, the band's ndc and sky rows, the strip's sky
-// columns, 4 x (32 R + 224) bytes: 5.9 KB at R = 40, 15.9 KB at R = 120.
+//  Then the next band: steps 2 and 3 on the thread's next 12 rows, with
+//  no barrier between bands (a warp that finishes a band goes on).
+// Shared memory: the strip's sky columns, the staged rows' ndc and sky
+// rows, the spans, 4 x (32 + 2 S + 32 R) bytes for S staged rows: 8.4 KB
+// at 640x400 (S = 420) and 6.8 KB at 320x200 (S = 216) for R = 40, 16.8
+// KB at 320x200 for R = 120.
 // The sky comes as coordinates, not as an image: the sky's texel
 // coordinates are separable, so the walk gives each column its texel
 // column sky_x[b, col] and each image row its texel row sky_y[b, row]
 // (render/portal.py:sky_coords; y = row + 0.5, which the pitch's shear
 // does not move), and a sky pixel reads sky_tex[sky_y, sky_x] (u8, 32 KB
-// at 256 x 128, through the read-only cache). The band's sky rows are
-// staged beside its ndc, the strip's sky columns beside them. (The JAX
+// at 256 x 128, through the read-only cache). The rows' sky offsets are
+// staged beside their ndc, the strip's sky columns before them. (The JAX
 // package hands its TPU kernel a (B, H, W) f32 sky image, because a
 // Pallas TPU kernel cannot gather cheaply.)
 // Outputs: the palette index as u8 and the coverage as bool, the frames'
@@ -67,8 +77,8 @@
 // 1.19-1.22x as long on the H100; PERF.md). Twelve rows a thread share
 // each record test among more pixels, and six resident blocks of 256
 // threads per SM (kMinBlocks, which caps registers at 40; seven of 224
-// threads at 640x400) keep enough warps in flight to hide the latency of
-// the shade's divisions and loads.
+// threads at 640x400, eight of 192 at 320x200) keep enough warps in
+// flight to hide the latency of the shade's divisions and loads.
 //
 // Two texel-table modes, as the TPU kernel's `per_env_tex` flag:
 //   global  (per_env = 0): one (S1, 128) int8 table of texel - 128 shared
@@ -102,6 +112,7 @@ constexpr int kMaxGroups = 8;  // row groups per block, one warp each
 constexpr int kRows = 12;      // contiguous rows per thread
 constexpr int kMinBlocks = 6;  // resident blocks per SM: <= 40 registers
 constexpr int kBandMax = kMaxGroups * kRows;  // rows of a band at most
+constexpr int kStagedRowsMax = 1024;          // rows whose ndc and sky are staged at once
 constexpr int kStaticSmem = 48 * 1024;
 
 // A record's span over one column in shared memory: rows [lo, hi) in
@@ -267,30 +278,24 @@ render_portal_kernel(
     const int8_t* __restrict__ cmap, uint8_t* __restrict__ out_idx,
     uint8_t* __restrict__ out_cov, int R, int W, int H, int n_words, int hc,
     int hs, int ws, int S1, int holeless, int per_env, int tex_stride,
-    float p11, int n_rows, int zero) {
-  // Shared memory: the per-column and per-row arrays first, at offsets
-  // fixed at compile time (no register holds their addresses), then the
-  // spans.
+    float p11, int n_rows, int staged, int zero) {
+  // Shared memory: the strip's sky columns and the staged rows' ndc first,
+  // at offsets fixed at compile time, then the staged rows' sky offsets
+  // and the spans, at offsets from the arguments.
   extern __shared__ uint32_t s_mem[];
   int* s_sky_col = reinterpret_cast<int*>(s_mem);  // kCols: the strip's sky columns
-  int* s_sky = s_sky_col + kCols;                   // kBandMax: band rows' sky offsets
-  float* s_ndc = reinterpret_cast<float*>(s_sky + kBandMax);  // kBandMax: band rows' ndc
-  uint32_t* s_span = reinterpret_cast<uint32_t*>(s_ndc + kBandMax);  // R x kCols
+  float* s_ndc = reinterpret_cast<float*>(s_sky_col + kCols);  // staged: rows' ndc
+  int* s_sky = reinterpret_cast<int*>(s_ndc + staged);         // staged: rows' sky offsets
+  uint32_t* s_span = reinterpret_cast<uint32_t*>(s_sky + staged);  // R x kCols
   const int groups = blockDim.y;
   const int band = groups * kRows;
   const int col0 = blockIdx.x * kCols;
-  const int row0 = blockIdx.y * band;
   const int b = blockIdx.z;
   const int tid = threadIdx.y * kCols + threadIdx.x;
   const int n_threads = kCols * groups;
   const float* rec_env = records + (size_t)b * R * kNch * W;
 
-  // --- 1. stage the strip's spans, the band's ndc and sky rows ----------
-  // The band's sky rows, the strip's sky columns (a band has fewer rows,
-  // and a strip fewer columns, than the block threads) and the shear are
-  // loaded with the spans.
-  const float shear_b = shear[b];
-  const int sky_row = tid < band && row0 + tid < H ? sky_y[(size_t)b * H + row0 + tid] : 0;
+  // --- 1. stage the strip's spans and sky columns, once ----------------
   const int sky_col = tid < kCols && col0 + tid < W ? sky_x[(size_t)b * W + col0 + tid] : 0;
   for (int i0 = tid; i0 < R * kCols; i0 += kStageUnroll * n_threads) {
     float y0[kStageUnroll], y1[kStageUnroll], masked[kStageUnroll];
@@ -322,100 +327,112 @@ render_portal_kernel(
       s_span[i] = span;
     }
   }
-  if (tid < band) {
-    const float y = (float)(row0 + tid) + 0.5f;
-    s_ndc[tid] = 1.0f - 2.0f * y / (float)H + shear_b;
-    // The sky texture's row offset of each band row (clamped: a row past
-    // H is never read).
-    s_sky[tid] = min(max(sky_row, 0), hs - 1) * ws;
-  }
   if (tid < kCols) s_sky_col[tid] = min(max(sky_col, 0), ws - 1);
-  __syncthreads();
 
   const int lane_col = threadIdx.x;
   const int col = col0 + lane_col;
-  const int rbase = row0 + threadIdx.y * kRows;
-  const int n_mine = col < W ? min(max(H - rbase, 0), kRows) : 0;
+  const float shear_b = shear[b];
   const float cam_x = cam[b * 3 + 0];
   const float cam_y = cam[b * 3 + 1];
   const float cam_z = cam[b * 3 + 2];
   rec_env += col;
 
-  // --- 2. classify: the first record covering each of my rows ------------
-  // The winners packed a byte a row (record + 1; 0: none), rows 4j..4j+3
-  // in win[j].
-  uint32_t win[kRows / 4] = {0u, 0u, 0u};
-  if constexpr (!(kAblate & kNoClassify)) {
-    const int32_t* words_env = words + (size_t)b * (R / kRpc) * n_words * W + col;
-    uint32_t pending = (1u << n_mine) - 1u;
-    for (int r = 0; r < R && pending; ++r) {
-      const uint32_t sp = s_span[r * kCols + lane_col];
-      const int a = max((int)(sp & kRowMask) - rbase, 0);
-      const int e = min((int)((sp >> kRowBits) & kRowMask) - rbase, kRows);
-      if (a >= e) continue;
-      uint32_t hit = ((1u << e) - (1u << a)) & pending;
-      if (!hit) continue;
-      if (sp & kAlphaFlag) {
-        const MaskedRec m = load_masked(rec_env + (size_t)r * kNch * W, W);
-        const int32_t* wk = words_env + (size_t)(r / kRpc) * n_words * W;
-        for (uint32_t t = hit; t; t &= t - 1u) {
-          const int i = __ffs(t) - 1;
-          if (!alpha_hit(m, s_ndc[rbase - row0 + i], cam_y, p11, hc, wk,
-                         n_words, W))
-            hit &= ~(1u << i);
-        }
+  // The strip's bands in turn, each warp its 12 rows of each, with no
+  // barrier between bands. The rows' ndc and sky rows are staged `staged`
+  // rows (whole bands) at a time: once, unless H > kStagedRowsMax.
+  for (int band0 = 0; band0 < H; band0 += band) {
+    const int li = band0 % staged;  // the band's first row among the staged
+    if (li == 0) {
+      // Every warp has shaded the rows staged before, which are replaced.
+      if (band0 > 0) __syncthreads();
+      for (int t = tid; t < min(staged, H - band0); t += n_threads) {
+        const float y = (float)(band0 + t) + 0.5f;
+        s_ndc[t] = 1.0f - 2.0f * y / (float)H + shear_b;
+        // The sky texture's row offset of each row.
+        s_sky[t] = min(max(sky_y[(size_t)b * H + band0 + t], 0), hs - 1) * ws;
       }
-      // Byte q of win[j] takes r + 1 where bit 4j + q of hit is set.
-#pragma unroll
-      for (int j = 0; j < kRows / 4; ++j) {
-        const uint32_t bytes = (((hit >> (4 * j)) & 0xfu) * 0x00204081u) & 0x01010101u;
-        win[j] |= (uint32_t)(r + 1) * bytes;
-      }
-      pending &= ~hit;
+      __syncthreads();
     }
-  }
-  if (n_mine == 0) return;
+    const int row0 = band0 - li;  // the first staged row
+    const int rbase = band0 + threadIdx.y * kRows;
+    const int n_mine = col < W ? min(max(H - rbase, 0), kRows) : 0;
 
-  // --- 3. shade my rows in turn ------------------------------------------
-  float dx = 0.0f, dz = 0.0f;
-  if constexpr (!(kAblate & kNoShadeMath)) {
-    dx = dxz[((size_t)b * 2 + 0) * W + col];
-    dz = dxz[((size_t)b * 2 + 1) * W + col];
-  }
-  const PixelCtx px{b, H, W, col, row0, lane_col, cam_x, cam_y, cam_z, dx, dz, p11,
-                    S1, n_rows, holeless, per_env, tex_stride, zero};
-  // At each change of winner, its channels from device memory and its
-  // ShadeRec computed, kept for the rows that follow.
-  ShadeRec sr;
-  sr.kind = 0.0f;
-  int cur = -2;         // the record whose kind sr.kind holds
-  bool loaded = false;  // and the rest of sr too
-#pragma unroll 1
-  for (int i = 0; i < n_mine; ++i) {
-    const int w = (int)(win[0] & 0xffu) - 1;
-    win[0] = (win[0] >> 8) | (win[1] << 24);
-    win[1] = (win[1] >> 8) | (win[2] << 24);
-    win[2] >>= 8;
-    const float* rec = rec_env + (size_t)max(w, 0) * kNch * W;
-    if (w != cur) {
-      cur = w;
-      loaded = false;
-      sr.kind = w >= 0 ? rec[2 * W] : ((kAblate & kNoClassify) ? (float)zero : 0.0f);
-    }
-    // With the walk switched off every pixel still takes the textured
-    // path, on its zero channels, so that the variant removes the walk
-    // and keeps the shade.
-    if (!loaded && ((kAblate & kNoClassify) || reads_texel(sr.kind))) {
-      float ch[kOutCh];
-      ch[0] = sr.kind;
+    // --- 2. classify: the first record covering each of my rows ----------
+    // The winners packed a byte a row (record + 1; 0: none), rows 4j..4j+3
+    // in win[j].
+    uint32_t win[kRows / 4] = {0u, 0u, 0u};
+    if constexpr (!(kAblate & kNoClassify)) {
+      const int32_t* words_env = words + (size_t)b * (R / kRpc) * n_words * W + col;
+      uint32_t pending = (1u << n_mine) - 1u;
+      for (int r = 0; r < R && pending; ++r) {
+        const uint32_t sp = s_span[r * kCols + lane_col];
+        const int a = max((int)(sp & kRowMask) - rbase, 0);
+        const int e = min((int)((sp >> kRowBits) & kRowMask) - rbase, kRows);
+        if (a >= e) continue;
+        uint32_t hit = ((1u << e) - (1u << a)) & pending;
+        if (!hit) continue;
+        if (sp & kAlphaFlag) {
+          const MaskedRec m = load_masked(rec_env + (size_t)r * kNch * W, W);
+          const int32_t* wk = words_env + (size_t)(r / kRpc) * n_words * W;
+          for (uint32_t t = hit; t; t &= t - 1u) {
+            const int i = __ffs(t) - 1;
+            if (!alpha_hit(m, s_ndc[rbase - row0 + i], cam_y, p11, hc, wk,
+                           n_words, W))
+              hit &= ~(1u << i);
+          }
+        }
+        // Byte q of win[j] takes r + 1 where bit 4j + q of hit is set.
 #pragma unroll
-      for (int c = 1; c < kOutCh; ++c)
-        ch[c] = (kAblate & kNoClassify) ? (float)zero : rec[(2 + c) * W];
-      sr = shade_rec<kAblate>(ch, cam_y, p11, n_rows);
-      loaded = true;
+        for (int j = 0; j < kRows / 4; ++j) {
+          const uint32_t bytes = (((hit >> (4 * j)) & 0xfu) * 0x00204081u) & 0x01010101u;
+          win[j] |= (uint32_t)(r + 1) * bytes;
+        }
+        pending &= ~hit;
+      }
     }
-    shade_pixel<kAblate>(px, rbase + i, sr, s_ndc, s_sky, s_sky_col, sky_tex, tex, hole,
-                         cmap, out_idx, out_cov);
+    if (n_mine == 0) continue;
+
+    // --- 3. shade my rows in turn ----------------------------------------
+    float dx = 0.0f, dz = 0.0f;
+    if constexpr (!(kAblate & kNoShadeMath)) {
+      dx = dxz[((size_t)b * 2 + 0) * W + col];
+      dz = dxz[((size_t)b * 2 + 1) * W + col];
+    }
+    const PixelCtx px{b, H, W, col, row0, lane_col, cam_x, cam_y, cam_z, dx, dz, p11,
+                      S1, n_rows, holeless, per_env, tex_stride, zero};
+    // At each change of winner, its channels from device memory and its
+    // ShadeRec computed, kept for the rows that follow.
+    ShadeRec sr;
+    sr.kind = 0.0f;
+    int cur = -2;         // the record whose kind sr.kind holds
+    bool loaded = false;  // and the rest of sr too
+#pragma unroll 1
+    for (int i = 0; i < n_mine; ++i) {
+      const int w = (int)(win[0] & 0xffu) - 1;
+      win[0] = (win[0] >> 8) | (win[1] << 24);
+      win[1] = (win[1] >> 8) | (win[2] << 24);
+      win[2] >>= 8;
+      const float* rec = rec_env + (size_t)max(w, 0) * kNch * W;
+      if (w != cur) {
+        cur = w;
+        loaded = false;
+        sr.kind = w >= 0 ? rec[2 * W] : ((kAblate & kNoClassify) ? (float)zero : 0.0f);
+      }
+      // With the walk switched off every pixel still takes the textured
+      // path, on its zero channels, so that the variant removes the walk
+      // and keeps the shade.
+      if (!loaded && ((kAblate & kNoClassify) || reads_texel(sr.kind))) {
+        float ch[kOutCh];
+        ch[0] = sr.kind;
+#pragma unroll
+        for (int c = 1; c < kOutCh; ++c)
+          ch[c] = (kAblate & kNoClassify) ? (float)zero : rec[(2 + c) * W];
+        sr = shade_rec<kAblate>(ch, cam_y, p11, n_rows);
+        loaded = true;
+      }
+      shade_pixel<kAblate>(px, rbase + i, sr, s_ndc, s_sky, s_sky_col, sky_tex, tex,
+                           hole, cmap, out_idx, out_cov);
+    }
   }
 }
 
@@ -430,11 +447,15 @@ int launch(const void* records, const void* words, const void* cam,
   // The walk keeps a row's winner + 1 in a byte.
   if (H < 1 || H > (int)kRowMask || hs < 1 || ws < 1 || R < 0 || R > 254)
     return (int)cudaErrorInvalidValue;
-  // Equal bands of whole row groups, at most kMaxGroups groups each.
+  // Equal bands of whole row groups, at most kMaxGroups groups each; one
+  // block a strip walks them all. Rows staged at once: whole bands, all of
+  // them where they fit in kStagedRowsMax.
   const int n_bands = (H + kBandMax - 1) / kBandMax;
   const int groups = ((H + n_bands - 1) / n_bands + kRows - 1) / kRows;
   const int band = groups * kRows;
-  const size_t smem = ((size_t)R * kCols + 2 * kBandMax + kCols) * sizeof(uint32_t);
+  const int per_stage = kStagedRowsMax / band;
+  const int staged = (n_bands < per_stage ? n_bands : per_stage) * band;
+  const size_t smem = ((size_t)R * kCols + 2 * staged + kCols) * sizeof(uint32_t);
   if (smem > kStaticSmem) {
     // Above 48 KB only with the opt-in; a card that refuses it fails the
     // call here, and nothing is launched. The refusal is also the runtime's
@@ -448,13 +469,14 @@ int launch(const void* records, const void* words, const void* cam,
     }
   }
   dim3 block(kCols, groups);
-  dim3 grid((W + kCols - 1) / kCols, (H + band - 1) / band, B);
+  dim3 grid((W + kCols - 1) / kCols, 1, B);
   render_portal_kernel<kAblate><<<grid, block, smem, (cudaStream_t)stream>>>(
       (const float*)records, (const int32_t*)words, (const float*)cam,
       (const float*)shear, (const float*)dxz, (const int32_t*)sky_x,
       (const int32_t*)sky_y, (const uint8_t*)sky_tex, tex, (const int8_t*)hole,
       (const int8_t*)cmap, (uint8_t*)out_idx, (uint8_t*)out_cov, R, W, H,
-      n_words, hc, hs, ws, S1, holeless, per_env, tex_stride, p11, n_rows, zero);
+      n_words, hc, hs, ws, S1, holeless, per_env, tex_stride, p11, n_rows, staged,
+      zero);
   return (int)cudaGetLastError();
 }
 

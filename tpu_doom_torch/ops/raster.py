@@ -16,21 +16,26 @@ the u8 texture and reads one texel per sky pixel. It writes the frames'
 own types, u8 indices and bool coverage: the TPU kernel's f32 outputs
 after the casts the JAX package makes of them.
 CUDA design (csrc/render_portal.cu): a block owns 32 columns of one env
-over a band of up to 96 rows; it stages every record's span over those
-columns once, as exact integer row ranges in shared memory, and each
-thread walks the records for 12 contiguous rows of one column at once,
-keeping each row's winner in a byte. It then shades its rows in turn: at
-each change of winner it loads the record's 11 channels and computes what
-no row changes (a wall's texel column and colormap row, the selects) into
-one ShadeRec, kept for the rows that follow, and computes and reads only
-what each pixel's kind uses; the three tables (68 KB + 8.6 KB + 8 KB on
-`:test:`) are read through the read-only cache. It fits 40 registers
-(4 bytes spilled): eight blocks of 192 threads per SM at 320x200, seven of
-224 at 640x400; shared memory 5.9 KB a block at R = 40, 15.9 KB at R =
-120. Bound: the shade arithmetic and the walk (one test per record until
-the first that covers). The kernel is a template over a mask of stages
-to switch off: B2 is <0>; the stage budget
-(tpu_doom_torch/tools/kernelbudget.py) launches the others.
+over the whole height; it stages every record's span over those columns
+once, as exact integer row ranges in shared memory, with each row's ndc
+and sky row. H is split into bands of up to 96 rows (5 at 640x400, 3 at
+320x200, one where H <= 96), and the block's warps walk and shade them
+band after band on that one staging: each thread walks the records for 12
+contiguous rows of one column at once, keeping each row's winner in a
+byte, then shades its rows in turn: at each change of winner it loads the
+record's 11 channels and computes what no row changes (a wall's texel
+column and colormap row, the selects) into one ShadeRec, kept for the
+rows that follow, and computes and reads only what each pixel's kind
+uses; the three tables (68 KB + 8.6 KB + 8 KB on `:test:`) are read
+through the read-only cache. It fits 40 registers (20 bytes spilled):
+eight blocks of 192 threads per SM at 320x200, seven of 224 at 640x400;
+shared memory 8.4 KB a block at 640x400 and 6.8 KB at 320x200 for R =
+40, 16.8 KB at 320x200 for R = 120 (the rows' ndc and sky of up to 1,024
+rows are staged at once; a taller image restages them). Bound: the shade
+arithmetic and the walk (one test per record until the first that
+covers). The kernel is a template over a mask of stages to switch off: B2
+is <0>; the stage budget (tpu_doom_torch/tools/kernelbudget.py) launches
+the others.
 
 B3 replaces `raster_pallas.py:peel_resolve_pallas` (kernel
 `_peel_resolve_kernel`). K-layer depth peel over y-sorted triangles with
